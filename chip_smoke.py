@@ -6,12 +6,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from fastplong_tpu_torch/csrc, holds each
-kernel against its plain PyTorch version at the main path's shapes (exact
-match required: every result is an integer), checks the fused step on CUDA
-against the port's CPU step, then drives the headline CLI
-(-s START -e END -5 -3 -x, both reports, --failed_out) on CUDA over a
-64-Mbase input made from a seed, compares its four outputs byte for byte
-with the port's CPU run of the same input, and profiles one more CUDA run.
+kernel against its plain PyTorch version at the main path's shapes and a
+few others (exact match required: every result is an integer; the Myers
+verify also as the paired launch the main path makes), times one
+stat_batch call, checks the fused step on CUDA against the port's CPU step,
+then drives the headline CLI (-s START -e END -5 -3 -x, both reports,
+--failed_out) on CUDA three times over a 64-Mbase input made from a seed,
+checks each run's kernel launches against its step count, compares its
+four outputs byte for byte with the port's CPU run of the same input, and
+profiles one more CUDA run.
 
 The second-to-last line of standard output is {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -32,6 +35,9 @@ import time
 
 START = "AATGTACTTCGTTCAGTTACGTATTGCT"
 END = "AGCAATACGTAACTGAACGAAGT"
+# a 33 bp adapter of knownadapters.py (Illumina TruSeq): the shortest
+# length that needs two Myers words
+TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 HEADLINE = ["-s", START, "-e", END, "-5", "-3", "-x"]
 SEED = 7
 
@@ -166,6 +172,7 @@ def phase_kernels():
     from fastplong_tpu_torch.ops.mismatch import (mismatch_scan,
                                                   mismatch_scan_plain)
     from fastplong_tpu_torch.ops.myers import (myers_verify,
+                                               myers_verify_pair,
                                                myers_verify_plain,
                                                pattern_table)
     dev = torch.device("cuda")
@@ -175,6 +182,7 @@ def phase_kernels():
     # ---- kernel 1: mismatch scan
     bases = torch.from_numpy(_rand_bases(rng, (1024, 8192))).to(dev)
     for label, seq, rows in (("28 bp", START, 1024), ("23 bp", END, 1024),
+                             ("33 bp", TRUSEQ, 1024),
                              ("300 bp", (START * 11)[:300], 256)):
         x = bases[:rows].contiguous()
         ad = torch.from_numpy(np.frombuffer(seq.encode(), np.uint8)
@@ -196,33 +204,62 @@ def phase_kernels():
         rec.setdefault("mismatch_scan", r)
 
     # ---- kernel 2: Myers verify (trim verifies at T = alen <= 200, middle
-    # search at T = alen; the largest instantiation K = 20 at T = 640)
+    # search at T = alen; the largest pattern, K = 20, at T = 640), then
+    # the main path's paired launch of the 28 bp and 23 bp problems
+    probs = {}
     for label, pat, N, T in (("trim/middle 28 bp", START, 1024, 28),
                              ("trim/middle 23 bp", END, 1024, 23),
+                             ("64 bp, K=2", (TRUSEQ * 2)[:64], 1024, 64),
                              ("200 bp, K=7", (START * 8)[:200], 1024, 200),
                              ("640 bp, K=20", (START * 23)[:640], 1024, 640)):
         pm = pattern_table(pat.encode(), dev)
         text = torch.from_numpy(_rand_bases(rng, (N, T))).to(dev)
         plen = torch.from_numpy(rng.integers(-2, T + 1, N).astype(np.int32)
                                 ).to(dev)
-        got = myers_verify(pm, plen, text, plen)
+        args = (pm, plen, text, plen)
+        probs[label] = args
+        got = myers_verify(*args)
         slow = T > 200
-        err = require_equal("myers_verify", got,
-                            myers_verify_plain(pm, plen, text, plen))
-        ms = graph_ms(lambda: myers_verify(pm, plen, text, plen))
-        ev = cuda_ms(lambda: myers_verify(pm, plen, text, plen))
-        plain = cuda_ms(lambda: myers_verify_plain(pm, plen, text, plen),
+        err = require_equal("myers_verify", got, myers_verify_plain(*args))
+        ms = graph_ms(lambda: myers_verify(*args))
+        ev = cuda_ms(lambda: myers_verify(*args))
+        plain = cuda_ms(lambda: myers_verify_plain(*args),
                         warmup=0 if slow else 1, reps=1 if slow else 3,
                         inner=1)
-        K = pm.shape[1]
-        cols = int(torch.clamp(plen, 0, T)[plen > 0].sum().item())
-        bms, by = bound(N * T + 12 * N + pm.numel() * 4,
-                        cols * (20 * K + 5), WORD32_OPS_PER_S)
+        bms, by = bound(*_myers_work(*args), WORD32_OPS_PER_S)
         r = dict(name="myers_verify", shape="N=%d T=%d K=%d (%s)"
-                 % (N, T, K, label), max_abs_err=err, ms=ms, eager_ms=ev,
-                 plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+                 % (N, T, pm.shape[1], label), max_abs_err=err, ms=ms,
+                 eager_ms=ev, plain_ms=plain, bound_ms=bms, bound_by=by,
+                 library_ms=None)
         log("phase 3: " + json.dumps(r))
-        rec.setdefault("myers_verify", r)
+    # the fixed cost of a K = 1 launch (launch, loads, stores): the 28 bp
+    # problem with empty texts, so that no column is computed
+    pm, plen, text, _ = probs["trim/middle 28 bp"]
+    args = (pm, plen, text, torch.zeros_like(plen))
+    err = require_equal("myers_verify", myers_verify(*args),
+                        myers_verify_plain(*args))
+    bms, by = bound(*_myers_work(*args), WORD32_OPS_PER_S)
+    log("phase 3: " + json.dumps(dict(
+        name="myers_verify", shape="N=1024 T=28 K=1, tlen 0 (fixed cost)",
+        max_abs_err=err, ms=graph_ms(lambda: myers_verify(*args)),
+        bound_ms=bms, bound_by=by, library_ms=None)))
+    pair = (probs["trim/middle 28 bp"], probs["trim/middle 23 bp"])
+    got = myers_verify_pair(*pair)
+    err = max(require_equal("myers_verify_pair", g, myers_verify_plain(*a))
+              for g, a in zip(got, pair))
+    ms = graph_ms(lambda: myers_verify_pair(*pair))
+    ev = cuda_ms(lambda: myers_verify_pair(*pair))
+    plain = cuda_ms(lambda: [myers_verify_plain(*a) for a in pair], reps=3,
+                    inner=1)
+    work = [_myers_work(*a) for a in pair]
+    bms, by = bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                    WORD32_OPS_PER_S)
+    r = dict(name="myers_verify", shape="pair: N=1024 T=28 K=1 + N=1024 "
+             "T=23 K=1 (the main path's paired launch)", max_abs_err=err,
+             ms=ms, eager_ms=ev, plain_ms=plain, bound_ms=bms, bound_by=by,
+             library_ms=None)
+    log("phase 3: " + json.dumps(r))
+    rec["myers_verify"] = r
 
     # ---- kernel 3: seed scan, both sides, [1024, 184] lanes
     spec = AdapterSpec(START, 0.25, dev)
@@ -250,7 +287,54 @@ def phase_kernels():
                  bound_ms=bms, bound_by=by, library_ms=None)
         log("phase 3: " + json.dumps(r))
         rec.setdefault("seed_scan", r)
+
+    phase_stat_batch(rng, bases)
     return rec
+
+
+def phase_stat_batch(rng, bases):
+    """One stat_batch call (plain PyTorch: no kernel of its own yet) at the
+    headline batch shape, in both forms the step calls (pre-filter with
+    zero_lo, post-filter over trimmed spans), by CUDA events.  The bound
+    counts bases and quals read once, lo/hi/mask read once and the partial
+    sums written once."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.ops.stats_kernels import stat_batch
+    dev = bases.device
+    B, L = bases.shape
+    quals = torch.from_numpy(rng.integers(33 + 2, 33 + 41, (B, L))
+                             .astype(np.uint8)).to(dev)
+    lo = torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(dev)
+    hi = lo + torch.from_numpy(rng.integers(0, L - 200, B).astype(np.int32)
+                               ).to(dev)
+    mask = torch.ones(B, dtype=torch.bool, device=dev)
+    out_bytes = 4 * (4 * 8 * L + 2 * L + 128 + 1024) + B + 4 * B
+    in_bytes = 2 * B * L + 9 * B
+    bms, by = bound(in_bytes + out_bytes, 0, WORD32_OPS_PER_S)
+    for form, lo_, kw in (("pre-filter, zero_lo", torch.zeros_like(lo),
+                           dict(zero_lo=True)),
+                          ("post-filter, spans", lo, {})):
+        ms = cuda_ms(lambda: stat_batch(bases, quals, lo_, hi, mask, **kw),
+                     reps=5, inner=3)
+        log("phase 3: " + json.dumps(dict(
+            name="stat_batch", shape="[%d, %d] %s" % (B, L, form), ms=ms,
+            bound_ms=bms, bound_by=by, library_ms=None)))
+
+
+def _myers_work(pm, plen, text, tlen):
+    """(bytes, operations) of one Myers problem for its bound: text, plen,
+    tlen and the table read once, the distances written once; about 20
+    word operations per column for each pattern word up to the lane's top
+    word, and 5 for its score, over the columns its text has."""
+    import torch
+    N, T = text.shape
+    K = pm.shape[1]
+    p = torch.clamp(plen.to(torch.int64), min=0)
+    words = torch.clamp((p - 1) // 32, 0, K - 1) + 1
+    cols = torch.clamp(tlen.to(torch.int64), 0, T)
+    ops = int(torch.where(p > 0, cols * (20 * words + 5), 0).sum().item())
+    return N * T + 12 * N + pm.numel() * 4, ops
 
 
 def _conv_mismatch(x, ad, mm):
@@ -481,21 +565,41 @@ def phase_cli(workdir):
         "loaded" if native.get_lib() is not None else "MISSING (numpy path)",
         "libdeflate" if native.gzip_available() else "zlib"))
 
+    # three runs of the same CLI in this process, for the host's spread;
+    # the launch counts are set to 0 before each run and read after it
     wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    dump = os.path.join(workdir, "timer.json")
-    wall, outs_g = run_cli(workdir, in_fq, "cuda", "cuda", timer_dump=dump)
-    launches = {n: w.launches for n, w in wrappers.items()}
-    log("phase 5: headline CLI on cuda: %d bases in %.3f s = %.2f Mbases/s"
-        % (nbases, wall, nbases / wall / 1e6))
-    with open(dump) as f:
-        log("phase 5: stage seconds " + f.read())
-    log("phase 5: kernel launches in the headline run " + json.dumps(launches))
-    missing = [n for n, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError("kernels not launched on the main path: %s"
-                             % missing)
+    walls = []
+    for k in range(3):
+        for w in wrappers.values():
+            w.launches = 0
+        dump = os.path.join(workdir, "timer%d.json" % k)
+        wall, outs_g = run_cli(workdir, in_fq, "cuda%d" % k, "cuda",
+                               timer_dump=dump)
+        launches = {n: w.launches for n, w in wrappers.items()}
+        walls.append(wall)
+        with open(dump) as f:
+            timing = json.load(f)
+        log("phase 5: headline CLI on cuda, run %d: %d bases in %.3f s = "
+            "%.2f Mbases/s; %d step calls; kernel launches %s"
+            % (k, nbases, wall, nbases / wall / 1e6, timing["step_calls"],
+               json.dumps(launches)))
+        log("phase 5:   seconds " + json.dumps(timing))
+        missing = [n for n, c in launches.items() if c <= 0]
+        if missing:
+            raise AssertionError("kernels not launched on the main path: %s"
+                                 % missing)
+        # per step: one scan per distinct adapter, one seed scan per trim
+        # side, and three paired verifies (start trim, end trim, middle)
+        steps = timing["step_calls"]
+        want = {"mismatch_scan": 2 * steps, "myers_verify": 3 * steps,
+                "seed_scan": 2 * steps}
+        if launches != want:
+            raise AssertionError("launches %s, expected %s for %d steps"
+                                 % (launches, want, steps))
+    med = statistics.median(walls)
+    log("phase 5: headline wall median %.3f s (%.2f Mbases/s), range "
+        "%.3f-%.3f s over 3 runs" % (med, nbases / med / 1e6, min(walls),
+                                     max(walls)))
 
     t0 = time.perf_counter()
     _, outs_c = run_cli(workdir, in_fq, "cpu", "cpu")

@@ -28,7 +28,8 @@ import torch
 
 from . import cuda_lib
 from .mismatch import mismatch_scan
-from .myers import MAX_DEVICE_PATTERN, M32, myers_verify, pattern_table
+from .myers import (MAX_DEVICE_PATTERN, M32, myers_verify,
+                    myers_verify_pair, pattern_table)
 from .primitives import arange, first_true, last_true, take_cols
 
 WINDOW = 200
@@ -87,9 +88,10 @@ def _mismatch_full(bases, spec):
     return mismatch_scan(bases, spec.adapter)
 
 
-def _verify_at(bases, abs_start, spec, cmplen=None, reverse=False,
-               full=False):
-    """Myers distance of the window starting (or ending) at abs_start.
+def _verify_problem(bases, abs_start, spec, cmplen=None, reverse=False,
+                    full=False):
+    """Arguments (pm, plen, text, tlen) of myers_verify for the Myers
+    distance of the window starting (or ending) at abs_start.
 
     forward: text = bases[abs_start : abs_start+n], pattern = adapter[:n]
     reverse: text = reversed bases[abs_start-n+1 ... abs_start],
@@ -113,7 +115,7 @@ def _verify_at(bases, abs_start, spec, cmplen=None, reverse=False,
         pm = spec.pm_full
     else:
         pm = spec.pm_rev if reverse else spec.pm_fwd
-    return myers_verify(pm, n, text.contiguous(), n)
+    return pm, n, text.contiguous(), n
 
 
 def _thr_select(cmplen, spec):
@@ -259,8 +261,8 @@ def trim_by_sequence_start(bases, lo, hi, spec, ext, mm=None):
             mm, rlen, alen, spec.thr_full,
             lo, lo + search_end - alen + 1, "right")
         pos_f = torch.where(valid_search & (pos_f >= 0), pos_f - lo, -1)
-        ed_f = _verify_at(bases, lo + torch.clamp(pos_f, min=0), spec)
-        ok_f = (pos_f >= 0) & (~needs_v | (ed_f <= spec.thr_full))
+        verify_f = _verify_problem(bases, lo + torch.clamp(pos_f, min=0),
+                                   spec)
     else:
         # alen >= WINDOW: the reference's full-match ranges are empty
         # (adaptertrimmer.cpp:80-110)
@@ -276,8 +278,15 @@ def trim_by_sequence_start(bases, lo, hi, spec, ext, mm=None):
                         torch.argmin(e_m, dim=-1).to(torch.int32), -1)
     cmplen = torch.clamp(pos_p + plen, max=alen)
     # verify: ed(read[pos+plen-cmplen : pos+plen], adapter[alen-cmplen:])
-    ed_p = _verify_at(bases, lo + torch.clamp(pos_p, min=0) + plen - 1, spec,
-                      cmplen=cmplen, reverse=True)
+    verify_p = _verify_problem(
+        bases, lo + torch.clamp(pos_p, min=0) + plen - 1, spec,
+        cmplen=cmplen, reverse=True)
+    if alen < WINDOW:
+        # the full-match and the partial verifies share one launch
+        ed_f, ed_p = myers_verify_pair(verify_f, verify_p)
+        ok_f = (pos_f >= 0) & (~needs_v | (ed_f <= spec.thr_full))
+    else:
+        ed_p = myers_verify(*verify_p)
     ok_p = (pos_p >= 0) & (ed_p <= _thr_select(cmplen, spec))
 
     # ---- combine (full match wins; partial only tried if no full match)
@@ -319,8 +328,8 @@ def trim_by_sequence_end(bases, lo, hi, spec, ext, mm=None):
         pos_f = torch.where(valid_search & (pos_f >= 0),
                             pos_f - lo - search_start, -1)
         abs_f = search_start + pos_f  # position within the span
-        ed_f = _verify_at(bases, lo + torch.clamp(abs_f, min=0), spec)
-        ok_f = (pos_f >= 0) & (~needs_v | (ed_f <= spec.thr_full))
+        verify_f = _verify_problem(bases, lo + torch.clamp(abs_f, min=0),
+                                   spec)
     else:
         # alen >= WINDOW: the leftmost loop is empty for every rlen
         # (adaptertrimmer.cpp:86-95)
@@ -345,8 +354,15 @@ def trim_by_sequence_end(bases, lo, hi, spec, ext, mm=None):
     # reference requires pos > 0 strictly for the partial path
     has_p = pos_p > 0
     cmplen = torch.clamp(pos_p + plen, max=alen)
-    ed_p = _verify_at(bases, lo + rlen - plen - torch.clamp(pos_p, min=0),
-                      spec, cmplen=cmplen, reverse=False)
+    verify_p = _verify_problem(
+        bases, lo + rlen - plen - torch.clamp(pos_p, min=0), spec,
+        cmplen=cmplen, reverse=False)
+    if alen < WINDOW:
+        # the full-match and the partial verifies share one launch
+        ed_f, ed_p = myers_verify_pair(verify_f, verify_p)
+        ok_f = (pos_f >= 0) & (~needs_v | (ed_f <= spec.thr_full))
+    else:
+        ed_p = myers_verify(*verify_p)
     ok_p = has_p & (ed_p <= _thr_select(cmplen, spec))
 
     # ---- combine
@@ -364,23 +380,30 @@ def trim_by_sequence_end(bases, lo, hi, spec, ext, mm=None):
     return lo + new_len, trimmed_ret, rec
 
 
-def search_global(bases, lo, hi, spec, mm=None):
-    """searchAdapter with default policy over the whole span (used by
-    findMiddleAdapters).  Returns position within span or -1."""
+def _global_candidate(bases, lo, hi, spec, mm=None):
+    """The default-policy candidate of searchAdapter over the whole span
+    and the arguments of its Myers verify (None when alen == 0)."""
     alen = spec.alen
     rlen = hi - lo
     if alen == 0:
         # degenerate: empty adapter "matches" at 0 whenever the global loop
         # runs at least once (rlen > 0)
-        return torch.where(rlen > 0, 0, -1).to(torch.int32)
+        return torch.where(rlen > 0, 0, -1).to(torch.int32), None
     if mm is None:
         mm = _mismatch_full(bases, spec)
     valid = alen <= rlen
     pos, _ = search_full(
         mm, rlen, alen, spec.thr_full, lo, lo + rlen - alen, "global")
     pos = torch.where(valid & (pos >= 0), pos - lo, -1)
-    ed = _verify_at(bases, lo + torch.clamp(pos, min=0), spec, full=True)
-    return torch.where((pos >= 0) & (ed <= spec.thr_full), pos, -1)
+    return pos, _verify_problem(bases, lo + torch.clamp(pos, min=0), spec,
+                                full=True)
+
+
+def _global_accept(pos, ed, spec):
+    """searchAdapter's result: the candidate if its verify passes, else -1
+    (ed is None for the empty adapter, which needs no verify)."""
+    return pos if ed is None else torch.where(
+        (pos >= 0) & (ed <= spec.thr_full), pos, -1)
 
 
 def find_middle_adapters(bases, lo, hi, start_spec, end_spec, ext,
@@ -389,8 +412,16 @@ def find_middle_adapters(bases, lo, hi, start_spec, end_spec, ext,
 
     Returns (found, start, length) relative to the span."""
     rlen = hi - lo
-    sp = search_global(bases, lo, hi, start_spec, mm=mm_start)
-    ep = search_global(bases, lo, hi, end_spec, mm=mm_end)
+    # both searches' candidates first, then their verifies in one launch
+    sp, verify_s = _global_candidate(bases, lo, hi, start_spec, mm=mm_start)
+    ep, verify_e = _global_candidate(bases, lo, hi, end_spec, mm=mm_end)
+    if verify_s is not None and verify_e is not None:
+        ed_s, ed_e = myers_verify_pair(verify_s, verify_e)
+    else:
+        ed_s = None if verify_s is None else myers_verify(*verify_s)
+        ed_e = None if verify_e is None else myers_verify(*verify_e)
+    sp = _global_accept(sp, ed_s, start_spec)
+    ep = _global_accept(ep, ed_e, end_spec)
     slen = start_spec.alen
     elen = end_spec.alen
 

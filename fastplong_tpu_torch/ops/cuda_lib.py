@@ -33,6 +33,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fpl_mismatch_scan": [_P, _I, _I, _P, _I, _P, _I, _P],
     "fpl_myers_verify": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
+    "fpl_myers_verify_pair": [_P, _I, _I, _P, _P, _P, _I, _P] * 2 + [_P],
     "fpl_seed_scan": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 

@@ -9,6 +9,10 @@ plen <= 0 returns tlen.  A shorter per-lane pattern is handled by starting
 VP with its low plen bits and reading the score bit plen-1: higher mask
 bits only carry upward and cannot reach the tracked bit.
 
+myers_verify_pair serves two independent problems (each with its own
+table, K, T and N) in one kernel launch; the adapter trims and the
+middle-adapter search pair their verifies through it.
+
 The plain version computes in int64 masked to 32 bits: torch's uint32 has
 no add, shifts or comparisons on the CPU.
 """
@@ -83,13 +87,9 @@ def myers_verify_plain(pm_tbl, plen, text, tlen):
     return torch.where(plen > 0, D, tlen).to(torch.int32)
 
 
-def myers_verify(pm_tbl, plen, text, tlen):
-    """Edit distance of text[n, :tlen[n]] against the pattern's first
-    plen[n] bytes, for each lane n.  pm_tbl: [256, K] int32 from
-    pattern_table; plen/tlen: [N] ints; text: [N, T] uint8.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if text.device.type == "cpu":
-        return myers_verify_plain(pm_tbl, plen, text, tlen)
+def _kernel_args(pm_tbl, plen, text, tlen):
+    """One problem's output tensor, its kernel arguments and the tensors
+    that must stay alive until the launch has been enqueued."""
     N, T = text.shape
     K = pm_tbl.shape[1]
     if (text.dtype != torch.uint8 or pm_tbl.dtype != torch.int32
@@ -100,14 +100,44 @@ def myers_verify(pm_tbl, plen, text, tlen):
     tlen = tlen.to(torch.int32).contiguous()
     cuda_lib.require_cuda("myers_verify", text, plen, tlen, pm_tbl)
     out = torch.empty(N, dtype=torch.int32, device=text.device)
-    if N == 0:
+    args = [cuda_lib.ptr(text), N, T, cuda_lib.ptr(plen), cuda_lib.ptr(tlen),
+            cuda_lib.ptr(pm_tbl), K, cuda_lib.ptr(out)]
+    return out, args, (plen, tlen)
+
+
+def myers_verify(pm_tbl, plen, text, tlen):
+    """Edit distance of text[n, :tlen[n]] against the pattern's first
+    plen[n] bytes, for each lane n.  pm_tbl: [256, K] int32 from
+    pattern_table; plen/tlen: [N] ints; text: [N, T] uint8.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if text.device.type == "cpu":
+        return myers_verify_plain(pm_tbl, plen, text, tlen)
+    out, args, _keep = _kernel_args(pm_tbl, plen, text, tlen)
+    if text.shape[0] == 0:
         return out
-    rc = cuda_lib.lib().fpl_myers_verify(
-        cuda_lib.ptr(text), N, T, cuda_lib.ptr(plen), cuda_lib.ptr(tlen),
-        cuda_lib.ptr(pm_tbl), K, cuda_lib.ptr(out), cuda_lib.stream(text))
+    rc = cuda_lib.lib().fpl_myers_verify(*args, cuda_lib.stream(text))
     cuda_lib.check(rc, "myers_verify")
     myers_verify.launches += 1
     return out
+
+
+def myers_verify_pair(first, second):
+    """myers_verify of two independent problems, each a tuple
+    (pm_tbl, plen, text, tlen) with its own K, T and N, in one kernel
+    launch (counted once in myers_verify.launches).  Returns the two
+    [N] distance vectors.  CPU tensors take the plain version twice."""
+    if first[2].device.type == "cpu" and second[2].device.type == "cpu":
+        return myers_verify_plain(*first), myers_verify_plain(*second)
+    out0, args0, _keep0 = _kernel_args(*first)
+    out1, args1, _keep1 = _kernel_args(*second)
+    cuda_lib.require_cuda("myers_verify_pair", first[2], second[2])
+    if out0.shape[0] + out1.shape[0] == 0:
+        return out0, out1
+    rc = cuda_lib.lib().fpl_myers_verify_pair(*args0, *args1,
+                                              cuda_lib.stream(first[2]))
+    cuda_lib.check(rc, "myers_verify_pair")
+    myers_verify.launches += 1
+    return out0, out1
 
 
 myers_verify.launches = 0

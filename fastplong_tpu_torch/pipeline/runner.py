@@ -135,6 +135,7 @@ class SingleEndRunner:
         self.out_writer = None
         self.failed_writer = None
         self.timer = StageTimer()
+        self.step_calls = 0      # device step launches (one per batch)
 
     def _nostats(self):
         if self._nostats_step is None:
@@ -275,6 +276,7 @@ class SingleEndRunner:
                 self.state = zero_stats_state(global_stat_len(), self.device)
             rows = self.step(self.state, xd, batch.L)
             self.max_seen = max(self.max_seen, int(batch.lens.max()))
+        self.step_calls += 1
         event = None
         if cuda:
             host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)

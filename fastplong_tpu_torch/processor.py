@@ -73,5 +73,6 @@ def process(opt, device=None):
             json.dump({"device": str(runner.device),
                        "phase_seconds": {k: round(v, 4)
                                          for k, v in phases.items()},
-                       "stage_seconds": runner.timer.report()}, f)
+                       "stage_seconds": runner.timer.report(),
+                       "step_calls": runner.step_calls}, f)
     return pre_stats, post_stats, filter_result

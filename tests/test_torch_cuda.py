@@ -13,7 +13,8 @@ import torch
 
 from fastplong_tpu_torch.ops import adapter as tadapter
 from fastplong_tpu_torch.ops.mismatch import mismatch_scan
-from fastplong_tpu_torch.ops.myers import myers_verify, pattern_table
+from fastplong_tpu_torch.ops.myers import (myers_verify, myers_verify_pair,
+                                           pattern_table)
 
 ACGTN = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -61,3 +62,82 @@ def test_kernels_on_card(card):
         args = (bases, anchor, ncand, tbl, spec.plen, start)
         assert torch.equal(tadapter.seed_scan(*args),
                            tadapter.seed_scan_plain(*args))
+
+
+# reads and adapters with bytes beyond ACGTN: IUPAC codes and lowercase
+ODD = np.frombuffer(b"ACGTNRYKMacgtn", np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alen", [1, 5, 23, 28, 31, 32, 33, 64, 200, 255,
+                                  256, 300])
+def test_mismatch_scan_shapes_on_card(card, alen):
+    """The scan against its plain version for every L and B here, with
+    zero padding at the end of short reads and non-ACGTN bytes; rows
+    longer than one tile (L = 20000) and more rows than one wave holds
+    (B = 1100) reach the scan's halo loads and its rows-per-block loop."""
+    from fastplong_tpu_torch.ops.mismatch import mismatch_scan_plain
+    rng = np.random.default_rng(50 + alen)
+    for odd in (False, True):
+        letters = ODD if odd else ACGTN[:4]
+        ad = torch.from_numpy(rng.choice(letters, size=alen).astype(np.uint8)
+                              ).to(card)
+        shapes = [(L, B) for L in (1, 31, 1000, 4093, 8192)
+                  for B in (1, 3, 64)] + [(20000, 3), (300, 1100)]
+        for L, B in shapes:
+            x = rng.choice(letters, size=(B, L)).astype(np.uint8)
+            lens = rng.integers(0, L + 1, B)
+            x[np.arange(L)[None, :] >= lens[:, None]] = 0
+            if L > alen:
+                x[0, L - alen:] = ad.cpu().numpy()
+            x = torch.from_numpy(x).to(card)
+            got = mismatch_scan(x, ad)
+            torch.cuda.synchronize()
+            assert torch.equal(got, mismatch_scan_plain(x, ad)), (L, B)
+
+
+def _problem(rng, K, T, N, card):
+    top = 32 * K - int(rng.integers(0, 8))
+    pm = pattern_table(_adapter(rng, top), card)
+    text = torch.from_numpy(_bases(rng, (N, T))).to(card)
+    plen = rng.integers(-1, top + 1, N).astype(np.int32)
+    tlen = rng.integers(0, T + 1, N).astype(np.int32)
+    if N >= 4:
+        plen[:4] = (top, 0, 1, 33)
+        tlen[:4] = (T, 0, T, 5)
+    return (pm, torch.from_numpy(plen).to(card), text,
+            torch.from_numpy(tlen).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", list(range(1, 21)))
+def test_myers_verify_every_k_on_card(card, K):
+    """The verify against its plain version at every K, at a text width
+    that is not a multiple of 32 (and, at K = 1, on both sides of the
+    register path's 32 columns)."""
+    from fastplong_tpu_torch.ops.myers import myers_verify_plain
+    rng = np.random.default_rng(70 + K)
+    for T in ((27, 45) if K == 1 else (32 * K - 5,)):
+        args = _problem(rng, K, T, 333, card)
+        got = myers_verify(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, myers_verify_plain(*args)), T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [((1, 28, 1024), (2, 64, 1000)),
+                                    ((7, 200, 300), (1, 23, 1024)),
+                                    ((20, 600, 64), (3, 90, 0)),
+                                    ((1, 45, 0), (5, 150, 77))])
+def test_myers_verify_pair_on_card(card, shapes):
+    """The paired launch with different K, T and N in its two problems
+    against the plain version of each."""
+    from fastplong_tpu_torch.ops.myers import myers_verify_plain
+    rng = np.random.default_rng(sum(k * t for k, t, _ in shapes))
+    pair = [_problem(rng, *shape, card) for shape in shapes]
+    before = myers_verify.launches
+    got = myers_verify_pair(*pair)
+    torch.cuda.synchronize()
+    assert myers_verify.launches == before + 1
+    for g, args in zip(got, pair):
+        assert torch.equal(g, myers_verify_plain(*args))

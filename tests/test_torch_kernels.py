@@ -17,7 +17,8 @@ from fastplong_tpu.ops import myers as jmyers
 from fastplong_tpu.ops.pallas_kernels import mismatch_scan as pallas_scan
 from fastplong_tpu_torch.ops import adapter as tadapter
 from fastplong_tpu_torch.ops.mismatch import mismatch_scan
-from fastplong_tpu_torch.ops.myers import myers_verify, pattern_table
+from fastplong_tpu_torch.ops.myers import (myers_verify, myers_verify_pair,
+                                           pattern_table)
 
 ACGTN = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -77,6 +78,63 @@ def test_myers_verify_matches_jax(K):
         assert int(got[n]) == want, (n, p, int(tlen[n]))
 
 
+@pytest.mark.parametrize("alen", [1, 31, 32, 33, 64])
+@pytest.mark.parametrize("alphabet", [b"ACGT", b"ACGTNRYKMSWacgtn"])
+def test_mismatch_scan_word_edges_and_bytes(alen, alphabet):
+    """Lengths at the edges of 32-position words, and adapters and reads
+    holding N, IUPAC and lowercase bytes, against _mismatch_full."""
+    rng = np.random.default_rng(1000 + alen + len(alphabet))
+    letters = np.frombuffer(alphabet, np.uint8)
+    data = bytes(rng.choice(letters, size=alen).tolist())
+    bases = rng.choice(letters, size=(4, 257)).astype(np.uint8)
+    bases[0, 5:5 + alen] = np.frombuffer(data, np.uint8)
+    bases[2, 200:] = 0                      # zero padding of a short read
+    ref = np.asarray(jadapter._mismatch_full(jnp.asarray(bases), data))
+    got = mismatch_scan(torch.from_numpy(bases),
+                        torch.from_numpy(np.frombuffer(data, np.uint8).copy()))
+    assert got.numpy().dtype == ref.dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _myers_problem(rng, K, T, N):
+    """A random problem with K pattern words and text width T: full,
+    empty, negative and ragged pattern lengths; texts of length 0, short
+    and full."""
+    top = 32 * K - int(rng.integers(0, 8))
+    pattern = _adapter(rng, top)
+    text = _bases(rng, (N, T))
+    if N:
+        n = min(T, top) - 2
+        text[0, 1:1 + n] = np.frombuffer(pattern, np.uint8)[:n]
+    plen = rng.integers(1, top + 1, N).astype(np.int32)
+    tlen = rng.integers(0, T + 1, N).astype(np.int32)
+    k = min(N, 5)
+    plen[:k] = (top, 0, -3, top, 1)[:k]
+    tlen[:k] = (T, 7, 4, 0, T)[:k]
+    return pattern, plen, text, tlen
+
+
+@pytest.mark.parametrize("shapes", [((1, 28, 16), (2, 64, 9)),
+                                    ((2, 45, 12), (7, 200, 6)),
+                                    ((1, 23, 0), (2, 40, 7)),
+                                    ((7, 150, 5), (1, 20, 0))])
+def test_myers_verify_pair_matches_jax(shapes):
+    """Each problem of a pair, with its own K, T and N, against
+    myers_distance_unrolled."""
+    rng = np.random.default_rng(sum(k * t + n for k, t, n in shapes))
+    problems = [_myers_problem(rng, *shape) for shape in shapes]
+    got = myers_verify_pair(*[
+        (pattern_table(pat), torch.from_numpy(plen), torch.from_numpy(text),
+         torch.from_numpy(tlen)) for pat, plen, text, tlen in problems])
+    for (pat, plen, text, tlen), g in zip(problems, got):
+        masks, K = jmyers.build_pattern_masks(pat)
+        ref = np.asarray(jmyers.myers_distance_unrolled(
+            masks, K, jnp.asarray(plen), jnp.asarray(text),
+            jnp.asarray(tlen)))
+        assert g.dtype == torch.int32 and g.shape == (len(plen),)
+        np.testing.assert_array_equal(g.numpy(), ref)
+
+
 @pytest.mark.parametrize("start_side", [True, False])
 def test_seed_scan_matches_jax(start_side):
     rng = np.random.default_rng(7 + start_side)
@@ -108,7 +166,10 @@ def test_wrappers_refuse_other_devices():
     ad = torch.empty(5, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
         mismatch_scan(meta, ad)
+    problem = (torch.empty((256, 1), dtype=torch.int32, device="meta"),
+               torch.empty(2, dtype=torch.int32, device="meta"), meta,
+               torch.empty(2, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
-        myers_verify(torch.empty((256, 1), dtype=torch.int32, device="meta"),
-                     torch.empty(2, dtype=torch.int32, device="meta"), meta,
-                     torch.empty(2, dtype=torch.int32, device="meta"))
+        myers_verify(*problem)
+    with pytest.raises(ValueError):
+        myers_verify_pair(problem, problem)
