@@ -8,13 +8,21 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from fastplong_tpu_torch/csrc, holds each
 kernel against its plain PyTorch version at the main path's shapes and a
 few others (exact match required: every result is an integer; the Myers
-verify also as the paired launch the main path makes), times one
-stat_batch call, checks the fused step on CUDA against the port's CPU step,
-then drives the headline CLI (-s START -e END -5 -3 -x, both reports,
---failed_out) on CUDA three times over a 64-Mbase input made from a seed,
-checks each run's kernel launches against its step count, compares its
-four outputs byte for byte with the port's CPU run of the same input, and
-profiles one more CUDA run.
+verify also as the paired launch the main path makes; the statistics
+kernel in both forms at the headline batch shape and on an edge batch),
+checks the fused step on CUDA against the port's CPU step, then drives the
+headline CLI (-s START -e END -5 -3 -x, both reports, --failed_out) on
+CUDA three times over a 64-Mbase input made from a seed, checks each run's
+kernel launches against its step count, compares its four outputs byte for
+byte with the port's CPU run of the same input, and profiles one more CUDA
+run (no index_add_ may appear among its device ops).
+
+    python3 chip_smoke.py --walls
+
+runs only the headline CLI three times and its profile, and prints the
+walls, stage seconds, launches and top device ops without checking them;
+copied into an unpacked older tree, it measures that tree's package, so
+that two trees can be timed in turns in one run on one card.
 
 The second-to-last line of standard output is {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -288,38 +296,101 @@ def phase_kernels():
         log("phase 3: " + json.dumps(r))
         rec.setdefault("seed_scan", r)
 
-    phase_stat_batch(rng, bases)
+    rec["stat_batch"] = phase_stat_batch(rng, bases)
     return rec
 
 
+def _stat_edge_batch(rng, B, L):
+    """Every byte value in bases and quals, ACGTU-rich rows for the 5-mers,
+    and the span cases: empty, hi < lo, full width, lo = -1 on a masked and
+    an unmasked row, spans past the row end, reads shorter than 5."""
+    import numpy as np
+    bases = rng.integers(0, 256, (B, L)).astype(np.uint8)
+    quals = rng.integers(0, 256, (B, L)).astype(np.uint8)
+    for i in range(12, B, 2):
+        bases[i] = rng.choice(np.frombuffer(b"ACGTUN", np.uint8), L,
+                              p=[.22, .22, .22, .22, .06, .06])
+        quals[i] = rng.integers(33, 75, L)
+    lo = rng.integers(-2, L // 2, B).astype(np.int32)
+    hi = (lo + rng.integers(0, L, B)).astype(np.int32)
+    mask = rng.random(B) < 0.85
+    cases = [(0, 0, True), (10, 5, True), (0, L, True), (-1, L, False),
+             (-1, 50, True), (L - 3, L + 4, True), (L + 5, L + 9, True),
+             (3, 4, True), (7, 9, True), (0, 3, True), (5, 4 + L, True),
+             (0, L, False)]
+    for i, (a, b, m) in enumerate(cases[:B]):
+        lo[i], hi[i], mask[i] = a, b, m
+    return bases, quals, lo, hi, mask
+
+
+def _stat_equal(got, ref):
+    """max_abs_err over every field of two stat_batch dicts (each must be
+    0)."""
+    return max(require_equal("stat_batch " + k, got[k], v)
+               for k, v in ref.items())
+
+
+def _stat_work(L, lo, hi, mask, zero_lo):
+    """(bytes, operations) of one stat_batch call for its bound: the
+    in-span bytes of bases and quals read once (what these spans need),
+    lo/hi/mask read once, the partial sums, medians and lengths written
+    once; about 10 word operations per in-span cycle."""
+    import torch
+    lo = lo.to(torch.int64)
+    hi = torch.maximum(hi.to(torch.int64), lo)
+    n = hi if zero_lo else hi - lo
+    n = torch.where(mask, torch.clamp(n, 0, L), 0)
+    cycles = int(n.sum().item())
+    B = lo.shape[0]
+    return (2 * cycles + 9 * B + 4 * (34 * L + 128 + 1024) + 5 * B,
+            10 * cycles)
+
+
 def phase_stat_batch(rng, bases):
-    """One stat_batch call (plain PyTorch: no kernel of its own yet) at the
-    headline batch shape, in both forms the step calls (pre-filter with
-    zero_lo, post-filter over trimmed spans), by CUDA events.  The bound
-    counts bases and quals read once, lo/hi/mask read once and the partial
-    sums written once."""
+    """The statistics kernel against its plain version, every field
+    exactly, in both forms the step calls (pre-filter with zero_lo,
+    post-filter over trimmed spans) at the headline batch shape and on an
+    edge batch; timed at the headline shape by CUDA graph and by events.
+    Returns the post-filter record (two of a step's three calls)."""
     import numpy as np
     import torch
-    from fastplong_tpu_torch.ops.stats_kernels import stat_batch
+    from fastplong_tpu_torch.ops.stats_kernels import (stat_batch,
+                                                       stat_batch_plain)
     dev = bases.device
+    edge = [torch.from_numpy(a).to(dev) for a in _stat_edge_batch(rng, 40,
+                                                                  300)]
+    for zero_lo in (True, False):
+        err = _stat_equal(stat_batch(*edge, zero_lo=zero_lo),
+                          stat_batch_plain(*edge, zero_lo=zero_lo))
+        log("phase 3: " + json.dumps(dict(
+            name="stat_batch", shape="edge batch [40, 300] %s" % (
+                "pre-filter" if zero_lo else "post-filter"),
+            max_abs_err=err)))
     B, L = bases.shape
     quals = torch.from_numpy(rng.integers(33 + 2, 33 + 41, (B, L))
                              .astype(np.uint8)).to(dev)
     lo = torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(dev)
     hi = lo + torch.from_numpy(rng.integers(0, L - 200, B).astype(np.int32)
                                ).to(dev)
-    mask = torch.ones(B, dtype=torch.bool, device=dev)
-    out_bytes = 4 * (4 * 8 * L + 2 * L + 128 + 1024) + B + 4 * B
-    in_bytes = 2 * B * L + 9 * B
-    bms, by = bound(in_bytes + out_bytes, 0, WORD32_OPS_PER_S)
-    for form, lo_, kw in (("pre-filter, zero_lo", torch.zeros_like(lo),
-                           dict(zero_lo=True)),
-                          ("post-filter, spans", lo, {})):
-        ms = cuda_ms(lambda: stat_batch(bases, quals, lo_, hi, mask, **kw),
-                     reps=5, inner=3)
-        log("phase 3: " + json.dumps(dict(
-            name="stat_batch", shape="[%d, %d] %s" % (B, L, form), ms=ms,
-            bound_ms=bms, bound_by=by, library_ms=None)))
+    mask = torch.from_numpy(rng.random(B) < 0.95).to(dev)
+    rec = None
+    for form, lo_, zero_lo in (("pre-filter, zero_lo", torch.zeros_like(lo),
+                                True),
+                               ("post-filter, spans", lo, False)):
+        args = (bases, quals, lo_, hi, mask)
+        err = _stat_equal(stat_batch(*args, zero_lo=zero_lo),
+                          stat_batch_plain(*args, zero_lo=zero_lo))
+        ms = graph_ms(lambda: stat_batch(*args, zero_lo=zero_lo))
+        ev = cuda_ms(lambda: stat_batch(*args, zero_lo=zero_lo))
+        plain = cuda_ms(lambda: stat_batch_plain(*args, zero_lo=zero_lo),
+                        reps=3, inner=2)
+        bms, by = bound(*_stat_work(L, lo_, hi, mask, zero_lo),
+                        WORD32_OPS_PER_S)
+        rec = dict(name="stat_batch", shape="[%d, %d] %s" % (B, L, form),
+                   max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        log("phase 3: " + json.dumps(rec))
+    return rec
 
 
 def _myers_work(pm, plen, text, tlen):
@@ -543,13 +614,15 @@ def kernel_wrappers():
     from fastplong_tpu_torch.ops.adapter import seed_scan
     from fastplong_tpu_torch.ops.mismatch import mismatch_scan
     from fastplong_tpu_torch.ops.myers import myers_verify
+    from fastplong_tpu_torch.ops.stats_kernels import stat_batch
     return {"mismatch_scan": mismatch_scan, "myers_verify": myers_verify,
-            "seed_scan": seed_scan}
+            "seed_scan": seed_scan, "stat_batch": stat_batch}
 
 
-def phase_cli(workdir):
+def phase_cli(workdir, walls_only=False):
     """The headline CLI on CUDA over the 64-Mbase input, its launch counts,
-    byte parity with the CPU run, and one profiled run."""
+    byte parity with the CPU run, and one profiled run.  walls_only: the
+    three runs and the profile, printed and not checked."""
     import torch
     in_fq = os.path.join(workdir, "in.fq")
     t0 = time.perf_counter()
@@ -584,15 +657,19 @@ def phase_cli(workdir):
             % (k, nbases, wall, nbases / wall / 1e6, timing["step_calls"],
                json.dumps(launches)))
         log("phase 5:   seconds " + json.dumps(timing))
+        if walls_only:
+            continue
         missing = [n for n, c in launches.items() if c <= 0]
         if missing:
             raise AssertionError("kernels not launched on the main path: %s"
                                  % missing)
         # per step: one scan per distinct adapter, one seed scan per trim
-        # side, and three paired verifies (start trim, end trim, middle)
+        # side, three paired verifies (start trim, end trim, middle) and
+        # three statistics calls (pre-filter, two post-filter slots) of
+        # one launch each
         steps = timing["step_calls"]
         want = {"mismatch_scan": 2 * steps, "myers_verify": 3 * steps,
-                "seed_scan": 2 * steps}
+                "seed_scan": 2 * steps, "stat_batch": 3 * steps}
         if launches != want:
             raise AssertionError("launches %s, expected %s for %d steps"
                                  % (launches, want, steps))
@@ -601,6 +678,21 @@ def phase_cli(workdir):
         "%.3f-%.3f s over 3 runs" % (med, nbases / med / 1e6, min(walls),
                                      max(walls)))
 
+    if not walls_only:
+        cpu_parity(workdir, in_fq, outs_g, nbases)
+    _, evs = profile_cli(workdir, in_fq)
+    if not walls_only:
+        stray = [e.key for e in evs if "index_add" in e.key
+                 or "indexFunc" in e.key]
+        if stray:
+            raise AssertionError("index_add_ still runs on the device: %s"
+                                 % stray)
+    return launches, torch.cuda.get_device_name(0)
+
+
+def cpu_parity(workdir, in_fq, outs_g, nbases):
+    """The same CLI on the CPU; its four outputs must equal the CUDA
+    run's."""
     t0 = time.perf_counter()
     _, outs_c = run_cli(workdir, in_fq, "cpu", "cpu")
     log("phase 5: the same CLI on the cpu in %.1f s"
@@ -615,6 +707,10 @@ def phase_cli(workdir):
         % tuple(os.path.getsize(p) for p in outs_g))
     check_report(outs_g[0], outs_g[2], 8000, nbases)
 
+
+def profile_cli(workdir, in_fq):
+    """One profiled CUDA run: its wall, device time, op count and top
+    device ops; returns (wall, device events)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -630,7 +726,7 @@ def phase_cli(workdir):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
         log("phase 5:   %9.3f ms %6d x %s" % (
             e.self_device_time_total / 1e3, e.count, e.key[:100]))
-    return launches, torch.cuda.get_device_name(0)
+    return pwall, evs
 
 
 def main():
@@ -650,10 +746,18 @@ def main():
         return 2
     sys.path.insert(0, here)
     torch.backends.cudnn.allow_tf32 = False
+    walls_only = sys.argv[1:] == ["--walls"]
+    if sys.argv[1:] and not walls_only:
+        sys.stderr.write("usage: chip_smoke.py [--walls]\n")
+        return 2
     workdir = tempfile.mkdtemp(prefix="fastplong_chip_smoke_")
     try:
         phase_device()
         phase_build()
+        if walls_only:
+            launches, kind = phase_cli(workdir, walls_only=True)
+            print(json.dumps({"walls_of": here, "launches": launches}))
+            return 0
         rec = phase_kernels()
         phase_step()
         launches, kind = phase_cli(workdir)
@@ -664,9 +768,10 @@ def main():
     replaces = {
         "mismatch_scan": "fastplong_tpu/ops/pallas_kernels.py:56",
         "myers_verify": "fastplong_tpu/ops/myers.py:149",
-        "seed_scan": "fastplong_tpu/ops/adapter.py:195"}
+        "seed_scan": "fastplong_tpu/ops/adapter.py:195",
+        "stat_batch": "fastplong_tpu/ops/stats_kernels.py:23"}
     kernels = []
-    for name in ("mismatch_scan", "myers_verify", "seed_scan"):
+    for name in ("mismatch_scan", "myers_verify", "seed_scan", "stat_batch"):
         r = rec[name]
         kernels.append(dict(
             name=name, route="cuda", source="%s/%s.cu" % (src, name),

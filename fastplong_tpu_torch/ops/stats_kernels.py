@@ -5,13 +5,17 @@ src/stats.cpp:265-375): per-cycle Q20/Q30/content/quality accumulators
 indexed by (base & 0x07), the base-quality histogram, rolling 5-mer counts
 and the per-read median quality, reduced over a batch of spans [lo, hi).
 
-The two histograms are plain PyTorch scatters (index_add_) into one spare
-bin that absorbs masked positions, so the step never waits on the device;
-the median is a row sort, as jnp.sort is in the JAX package.
+stat_batch launches the hand-written CUDA kernel (csrc/stat_batch.cu: one
+launch, shared-memory histograms, a per-read 256-bin count for the median,
+per-cycle counters in registers) for CUDA tensors; stat_batch_plain is its
+plain PyTorch version, which CPU tensors take: index_add_ scatters into one
+spare bin that absorbs masked positions, and a row sort for the median, as
+jnp.sort is in the JAX package.
 """
 
 import torch
 
+from . import cuda_lib
 from .align import align_spans
 from .primitives import arange
 
@@ -28,12 +32,8 @@ def _histogram(idx, valid, nbins):
     return h[:nbins]
 
 
-def stat_batch(bases, quals, lo, hi, read_mask, zero_lo=False):
-    """Returns a dict of per-batch partial statistics.
-
-    read_mask [B] bool excludes padding rows / filtered-out reads.
-    zero_lo=True (pre-stats on untrimmed reads) skips span alignment.
-    """
+def stat_batch_plain(bases, quals, lo, hi, read_mask, zero_lo=False):
+    """Plain PyTorch version of stat_batch."""
     B, L = bases.shape
     lo = lo.to(torch.int32)
     hi = torch.maximum(hi.to(torch.int32), lo)
@@ -107,3 +107,57 @@ def stat_batch(bases, quals, lo, hi, read_mask, zero_lo=False):
         "rlen": rlen,                           # [B]
         "read_mask": read_mask,                 # [B]
     }
+
+
+# the kernel's int32 partial: these four [8, L] blocks, then the total
+# bases and quality [L], the quality histogram [128] and the 5-mer counts
+# [1024] (csrc/stat_batch.cu)
+_CYCLE_FIELDS = ("cycle_q20", "cycle_q30", "cycle_content", "cycle_qual")
+
+
+def stat_batch(bases, quals, lo, hi, read_mask, zero_lo=False):
+    """Returns a dict of per-batch partial statistics.
+
+    read_mask [B] bool excludes padding rows / filtered-out reads.
+    zero_lo=True (pre-stats on untrimmed reads) skips span alignment.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if bases.device.type == "cpu":
+        return stat_batch_plain(bases, quals, lo, hi, read_mask, zero_lo)
+    B, L = bases.shape
+    if (bases.dtype != torch.uint8 or quals.dtype != torch.uint8
+            or L == 0 or quals.shape != (B, L)
+            or read_mask.dtype != torch.bool
+            or lo.shape != (B,) or hi.shape != (B,)
+            or read_mask.shape != (B,)):
+        raise ValueError("stat_batch: unsupported inputs")
+    lo = lo.to(torch.int32).contiguous()
+    hi = hi.to(torch.int32).contiguous()
+    read_mask = read_mask.contiguous()
+    cuda_lib.require_cuda("stat_batch", bases, quals, lo, hi, read_mask)
+    dev = bases.device
+    flat = torch.zeros(34 * L + 128 + 1024, dtype=torch.int32, device=dev)
+    median = torch.empty(B, dtype=torch.uint8, device=dev)
+    rlen = torch.empty(B, dtype=torch.int32, device=dev)
+    if B > 0:
+        rc = cuda_lib.lib().fpl_stat_batch(
+            cuda_lib.ptr(bases), cuda_lib.ptr(quals), B, L, cuda_lib.ptr(lo),
+            cuda_lib.ptr(hi), cuda_lib.ptr(read_mask), int(bool(zero_lo)),
+            cuda_lib.ptr(flat), cuda_lib.ptr(median), cuda_lib.ptr(rlen),
+            cuda_lib.stream(bases))
+        cuda_lib.check(rc, "stat_batch")
+        stat_batch.launches += 1
+    out = {k: flat[i * 8 * L:(i + 1) * 8 * L].view(8, L)
+           for i, k in enumerate(_CYCLE_FIELDS)}
+    o = 32 * L
+    out["cycle_total_base"] = flat[o:o + L]
+    out["cycle_total_qual"] = flat[o + L:o + 2 * L]
+    out["base_qual_hist"] = flat[o + 2 * L:o + 2 * L + 128]
+    out["kmer"] = flat[o + 2 * L + 128:]
+    out["median"] = median
+    out["rlen"] = rlen
+    out["read_mask"] = read_mask
+    return out
+
+
+stat_batch.launches = 0

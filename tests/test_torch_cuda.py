@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fastplong_tpu_torch.ops import adapter as tadapter
+from fastplong_tpu_torch.ops import stats_kernels as tstats
 from fastplong_tpu_torch.ops.mismatch import mismatch_scan
 from fastplong_tpu_torch.ops.myers import (myers_verify, myers_verify_pair,
                                            pattern_table)
@@ -141,3 +142,47 @@ def test_myers_verify_pair_on_card(card, shapes):
     assert myers_verify.launches == before + 1
     for g, args in zip(got, pair):
         assert torch.equal(g, myers_verify_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", ["AATGTACTTCGTTCAGTTACGTATTGCT", "ACGTN",
+                                 "AGCTTCAGTNRYacgt", "A"])
+def test_seed_scan_on_card(card, seq):
+    """The seed scan against its plain version on both sides, at plen 16
+    and below, with non-ACGT bytes in reads and seeds and anchors at and
+    beyond both row ends."""
+    rng = np.random.default_rng(len(seq))
+    spec = tadapter.AdapterSpec(seq, 0.25, card)
+    B, L = 300, 400
+    x = rng.choice(np.frombuffer(b"ACGTNRYacgt\0", np.uint8), (B, L))
+    anchor = rng.integers(-40, L + 40, B).astype(np.int32)
+    anchor[:5] = (0, L - spec.plen, -3, L - 1, L)
+    ncand = rng.integers(0, 185, B).astype(np.int32)
+    x, anchor, ncand = (torch.from_numpy(a).to(card)
+                        for a in (x, anchor, ncand))
+    for start, tbl in ((True, spec.seed_rev), (False, spec.seed_fwd)):
+        args = (x, anchor, ncand, tbl, spec.plen, start)
+        got = tadapter.seed_scan(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tadapter.seed_scan_plain(*args)), start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_lo", [True, False], ids=["pre", "post"])
+@pytest.mark.parametrize("shape", [(40, 300), (1100, 64), (300, 1000),
+                                   (3, 8192), (1100, 8192)])
+def test_stat_batch_on_card(card, shape, zero_lo):
+    """The statistics kernel against its plain version, field by field and
+    exactly, on chip_smoke.py's edge batch; B = 1100 gives row blocks more than one
+    read, and at L = 8192 column blocks chunks of 65 reads."""
+    from chip_smoke import _stat_edge_batch
+    rng = np.random.default_rng(shape[0] + shape[1])
+    arrs = [torch.from_numpy(a).to(card)
+            for a in _stat_edge_batch(rng, *shape)]
+    before = tstats.stat_batch.launches
+    got = tstats.stat_batch(*arrs, zero_lo=zero_lo)
+    torch.cuda.synchronize()
+    assert tstats.stat_batch.launches == before + 1
+    ref = tstats.stat_batch_plain(*arrs, zero_lo=zero_lo)
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k

@@ -159,6 +159,35 @@ def test_seed_scan_matches_jax(start_side):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("start_side", [True, False])
+@pytest.mark.parametrize("seq", ["A", "ACGTN", "AGCTTCAGTNRYacg",
+                                 "AGCTTCAGTNRYacgtTTT"])
+def test_seed_scan_seeds_match_jax(seq, start_side):
+    """Seeds shorter than 16 bytes and seeds with N, IUPAC and lowercase
+    bytes, over reads of the same bytes with zero padding, with anchors at
+    and beyond both row ends."""
+    rng = np.random.default_rng(len(seq) + 10 * start_side)
+    B, L = 10, 300
+    bases = rng.choice(np.frombuffer(b"ACGTNRYacgt\0", np.uint8), (B, L))
+    for i in range(B):
+        p = int(rng.integers(0, L - len(seq)))
+        bases[i, p:p + len(seq)] = np.frombuffer(seq.encode(), np.uint8)
+    plen = min(16, len(seq))
+    anchor = rng.integers(-40, L + 40, B).astype(np.int32)
+    anchor[:5] = (0, L - plen, -3, L - 1, L)
+    ncand = rng.integers(0, 185, B).astype(np.int32)
+    jspec = jadapter.AdapterSpec(seq, 0.25)
+    tspec = tadapter.AdapterSpec(seq, 0.25)
+    assert tspec.plen == plen
+    ref = np.asarray(jadapter._seed_scan(
+        jnp.asarray(bases), jnp.asarray(anchor), jnp.asarray(ncand), jspec,
+        start_side))
+    got = tadapter._seed_scan(torch.from_numpy(bases),
+                              torch.from_numpy(anchor),
+                              torch.from_numpy(ncand), tspec, start_side)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_wrappers_refuse_other_devices():
     """A tensor that is neither on the CPU nor on a card gets an error,
     never the plain version."""

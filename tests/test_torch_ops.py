@@ -208,6 +208,67 @@ def test_stat_batch_matches_jax(pre):
         _eq(got[k], ref[k])
 
 
+def _stat_edges(case, B=24, L=120):
+    """Edge batches for stat_batch: every byte value in bases and quals,
+    ACGTU-rich rows for the 5-mers, and one family of span cases each."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    bases = rng.integers(0, 256, (B, L)).astype(np.uint8)
+    quals = rng.integers(0, 256, (B, L)).astype(np.uint8)
+    for i in range(1, B, 2):
+        bases[i] = rng.choice(np.frombuffer(b"ACGTUN", np.uint8), L,
+                              p=[.22, .22, .22, .22, .06, .06])
+        quals[i] = rng.integers(33, 75, L)
+    lo = rng.integers(0, L // 2, B).astype(np.int32)
+    hi = (lo + rng.integers(0, L // 2, B)).astype(np.int32)
+    mask = np.ones(B, bool)
+    cases = {
+        "every_byte": [],
+        "masked_rows": [(0, L, False), (-1, L, False), (3, 40, False),
+                        (-1, 0, False)],
+        "empty_and_inverted": [(0, 0, True), (10, 5, True), (50, 50, True),
+                               (L, L, True), (7, -3, True)],
+        "full_width": [(0, L, True), (0, L, True), (5, L + 4, True),
+                       (L - 3, L + 4, True), (L + 5, L + 9, True)],
+        "short_reads": [(0, 1, True), (3, 5, True), (7, 10, True),
+                        (0, 4, True), (L - 4, L, True), (2, 7, True)],
+        "lo_minus_one": [(-1, L, False), (-1, 50, True), (-1, -1, True),
+                         (-1, 3, True), (-2, 9, True)],
+    }[case]
+    for i, (a, b, m) in enumerate(cases):
+        for r in (i, i + len(cases)):      # an ACGTU row and a random row
+            lo[r], hi[r], mask[r] = a, b, m
+    return bases, quals, lo, hi, mask
+
+
+STAT_EDGE_CASES = ["every_byte", "masked_rows", "empty_and_inverted",
+                   "full_width", "short_reads", "lo_minus_one"]
+
+
+@pytest.mark.parametrize("pre", [True, False], ids=["pre", "post"])
+@pytest.mark.parametrize("case", STAT_EDGE_CASES)
+def test_stat_batch_edges_match_jax(case, pre):
+    """The edge batches of the kernel's contract, through both packages'
+    stat_batch on the CPU, every field exactly."""
+    bases, quals, lo, hi, mask = _stat_edges(case)
+    got = ts.stat_batch(*_t(bases, quals, lo, hi, mask), zero_lo=pre)
+    ref = js.stat_batch(*_j(bases, quals, lo, hi, mask), zero_lo=pre)
+    for k in _STAT_KEYS:
+        assert np.asarray(got[k]).dtype == np.asarray(ref[k]).dtype, k
+        _eq(got[k], ref[k])
+    assert int(np.asarray(ref["kmer"]).sum()) > 0
+
+
+def test_stat_batch_refuses_other_devices():
+    """A tensor that is neither on the CPU nor on a card gets an error,
+    never the plain version."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError):
+        ts.stat_batch(meta((2, 64), torch.uint8), meta((2, 64), torch.uint8),
+                      meta(2, torch.int32), meta(2, torch.int32),
+                      meta(2, torch.bool))
+
+
 def _specs(seq):
     return ja.AdapterSpec(seq, 0.25), ta.AdapterSpec(seq, 0.25)
 
