@@ -9,13 +9,21 @@ It builds the port's CUDA kernels from fastplong_tpu_torch/csrc, holds each
 kernel against its plain PyTorch version at the main path's shapes and a
 few others (exact match required: every result is an integer; the Myers
 verify also as the paired launch the main path makes; the statistics
-kernel in both forms at the headline batch shape and on an edge batch),
-checks the fused step on CUDA against the port's CPU step, then drives the
-headline CLI (-s START -e END -5 -3 -x, both reports, --failed_out) on
-CUDA three times over a 64-Mbase input made from a seed, checks each run's
-kernel launches against its step count, compares its four outputs byte for
-byte with the port's CPU run of the same input, and profiles one more CUDA
-run (no index_add_ may appear among its device ops).
+kernel in both forms at the headline batch shape and on an edge batch; the
+region scan in the break and mask forms and on an edge batch), checks the
+fused step on CUDA against the port's CPU step with the headline and the
+break-and-mask parameters, then drives the headline CLI (-s START -e END
+-5 -3 -x, both reports, --failed_out) on CUDA three times over a 64-Mbase
+input made from a seed, checks each run's kernel launches against its step
+count, compares its four outputs byte for byte with the port's CPU run of
+the same input, and profiles one more CUDA run (no index_add_ may appear
+among its device ops).  Then, as functional checks over a 64-Mbase input
+with low-quality stretches planted, the headline flags with break and
+mask (-b -N: one CUDA run, its launches, "rN-" fragments and failed reads
+in its output, byte parity with the CPU run, and a profile) and with
+N-masking alone (-N: its launches, failed reads holding runs of N at
+least one window long, byte parity with the CPU run).  The fused step
+with -b -N and with -N must find regions too.
 
     python3 chip_smoke.py --walls
 
@@ -297,7 +305,159 @@ def phase_kernels():
         rec.setdefault("seed_scan", r)
 
     rec["stat_batch"] = phase_stat_batch(rng, bases)
+    rec["regions"] = phase_regions(rng)
     return rec
+
+
+def _lowq_quals(rng, B, L, frac=0.3):
+    """Q5-Q39 quality rows (the headline input's) with one to three
+    stretches of 60-800 bytes at Q2-Q8 planted in `frac` of them (rates
+    chosen so that break and mask find regions, not taken from measured
+    reads)."""
+    import numpy as np
+    quals = rng.integers(33 + 5, 33 + 40, (B, L)).astype(np.uint8)
+    for i in np.nonzero(rng.random(B) < frac)[0]:
+        for _ in range(int(rng.integers(1, 4))):
+            p = int(rng.integers(0, L))
+            k = min(int(rng.integers(60, 801)), L - p)
+            quals[i, p:p + k] = rng.integers(33 + 2, 33 + 9, k)
+    return quals
+
+
+def _region_edge_batch(rng, B=48, L=300):
+    """(quals, lens, lo [2, B], hi [2, B]) for the region kernel's edge
+    cases: Q2-Q40 rows, rows with Q2-Q8 stretches, the many-regions
+    pattern of alternating '~' and '#' blocks, high-quality rows with no
+    region; inactive slots (hi = lo, at 0 and inside the row), spans that
+    reach L, non-zero lo, spans past the read's length, short spans."""
+    import numpy as np
+    quals = rng.integers(33 + 2, 33 + 41, (B, L)).astype(np.uint8)
+    for i in range(0, B, 4):
+        p = int(rng.integers(0, L - 40))
+        k = min(int(rng.integers(20, 150)), L - p)
+        quals[i, p:p + k] = rng.integers(33 + 2, 33 + 9, k)
+    for i in range(1, B, 4):
+        row = []
+        while len(row) < L:
+            row += ([126] * int(rng.integers(10, 30))
+                    + [35] * int(rng.integers(10, 30)))
+        quals[i] = row[:L]
+    quals[B - 4:] = 33 + 40
+    lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lens[:8] = L
+    quals[np.arange(L)[None, :] >= lens[:, None]] = 0
+    cut = np.sort(rng.integers(0, L + 1, (3, B)), axis=0).astype(np.int32)
+    lo, hi = cut[:-1].copy(), cut[1:].copy()
+    cases = [(0, 0), (37, 37), (0, L), (5, L), (L - 1, L), (L, L),
+             (120, 140), (0, 1), (250, L), (3, L - 1), (11, 200), (0, L)]
+    for i, (a, b) in enumerate(cases):
+        lo[i % 2, i], hi[i % 2, i] = a, b
+    return quals, lens, lo, hi
+
+
+def _region_work(L, lo, hi, w):
+    """(bytes, operations) of one region call for its bound: the cq
+    entries of every span that a pass tests (l >= w), 4 bytes each, read
+    once; lo and hi read and the three results written once; about 8 word
+    operations per tested position."""
+    import torch
+    lo = lo.to(torch.int64)
+    hi = hi.to(torch.int64)
+    n = torch.clamp(hi, 0, L) - torch.clamp(lo, 0, L) + 1
+    n = torch.where((hi - lo >= w) & (n > 0), n, 0)
+    pos = int(n.sum().item())
+    return 4 * pos + 20 * lo.numel(), 8 * pos
+
+
+def _region_spans(rng, lens):
+    """The break form's two slots for reads of these lengths, as the
+    middle split leaves them: trimmed ends, about one read in ten split
+    in two, the second slot inactive elsewhere."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.pipeline.device import Slots
+    B = len(lens)
+    lo = rng.integers(0, 60, B)
+    hi = np.maximum(lo, lens - rng.integers(0, 60, B))
+    split = rng.random(B) < 0.1
+    mid = lo + ((hi - lo) * rng.random(B)).astype(np.int64)
+    zero = np.zeros(B, np.int32)
+    ints = [np.stack(a).astype(np.int32) for a in (
+        [lo, mid], [np.where(split, mid, hi), hi], [zero, zero],
+        [zero, zero])]
+    flags = [np.stack(a) for a in ([np.ones(B, bool), split],
+                                   [~split, np.zeros(B, bool)])]
+    lo2, hi2, tag, region = (torch.from_numpy(a).cuda() for a in ints)
+    active, parent = (torch.from_numpy(a).cuda() for a in flags)
+    return Slots(lo2, hi2, active, tag, region, parent)
+
+
+def phase_regions(rng):
+    """The region scan against its plain version, all three outputs
+    exactly: an edge batch at windows from 1 to beyond L in the [B] and
+    [2, B] forms, then the main path's two launches at [1024, 8192] with
+    low-quality stretches planted: break over the middle split's 2 slots
+    (window 100, Q10) and mask over the 4 slots break leaves (window 50,
+    Q10), and the -N path's launch, mask over the middle split's 2 slots;
+    timed by CUDA graph and by events.  Returns the record of the mask
+    over 4 slots (the break-and-mask path's)."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.ops.primitives import qual_cumsum
+    from fastplong_tpu_torch.ops.regions import (
+        detect_regions_summary, detect_regions_summary_plain)
+    from fastplong_tpu_torch.pipeline.device import break_slots
+    dev = torch.device("cuda")
+    names = ("ws1", "last_end", "count")
+
+    def equal(args):
+        got = detect_regions_summary(*args)
+        ref = detect_regions_summary_plain(*args)
+        return got, max(require_equal("regions " + k, g, r)
+                        for k, g, r in zip(names, got, ref))
+
+    quals, lens, lo, hi = (torch.from_numpy(a).to(dev)
+                           for a in _region_edge_batch(rng))
+    cq = qual_cumsum(quals, lens)
+    found = 0
+    for w in (1, 2, 15, 50, 100, 299, 300, 301, 1000):
+        for q in (10, 20):
+            for a, b in ((lo[0], hi[0]), (lo, hi)):
+                got, err = equal((cq, a, b, w, (33 + q) * w))
+                found += int(got[2].sum().item())
+    log("phase 3: " + json.dumps(dict(
+        name="regions", shape="edge batch [48, 300], [B] and [2, B] spans, "
+        "w in 1, 2, 15, 50, 100, 299, 300, 301, 1000 at Q10 and Q20",
+        max_abs_err=err, regions_found=found)))
+
+    B, L = 1024, 8192
+    lens = rng.integers(L // 2 + 1, L + 1, B).astype(np.int32)
+    quals = torch.from_numpy(_lowq_quals(rng, B, L)).to(dev)
+    cq = qual_cumsum(quals, torch.from_numpy(lens).to(dev))
+    two = _region_spans(rng, lens)
+    four = break_slots(two, cq, 100, 10)
+    recs = {}
+    for form, s, w in (("break: [2, %d] spans, window 100 Q10" % B, two, 100),
+                       ("mask: [4, %d] spans, window 50 Q10" % B, four, 50),
+                       ("mask alone (-N): [2, %d] spans, window 50 Q10" % B,
+                        two, 50)):
+        args = (cq, s.lo, torch.where(s.active, s.hi, s.lo), w, 43 * w)
+        got, err = equal(args)
+        ms = graph_ms(lambda: detect_regions_summary(*args))
+        ev = cuda_ms(lambda: detect_regions_summary(*args))
+        plain = cuda_ms(lambda: detect_regions_summary_plain(*args),
+                        warmup=1, reps=3, inner=1)
+        bms, by = bound(*_region_work(L, args[1], args[2], w),
+                        WORD32_OPS_PER_S)
+        rec = dict(name="regions", shape="[%d, %d] %s" % (B, L, form),
+                   max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, library_ms=None,
+                   spans_with_regions=int((got[2] > 0).sum().item()))
+        log("phase 3: " + json.dumps(rec))
+        recs[form.split(":")[0]] = rec
+    if not recs["mask alone (-N)"]["spans_with_regions"]:
+        raise AssertionError("regions: the -N form found no region")
+    return recs["mask"]
 
 
 def _stat_edge_batch(rng, B, L):
@@ -429,11 +589,13 @@ def _conv_mismatch(x, ad, mm):
     return cuda_ms(lambda: F.conv1d(onehot, w))
 
 
-def _rand_batch(rng, B, L, plant=()):
-    """Random reads with N bases and adapters planted anywhere in them."""
+def _rand_batch(rng, B, L, plant=(), lowq=False):
+    """Random reads with N bases and adapters planted anywhere in them;
+    lowq: the qualities of _lowq_quals."""
     import numpy as np
     bases = _rand_bases(rng, (B, L))
-    quals = rng.integers(33 + 2, 33 + 41, size=(B, L)).astype(np.uint8)
+    quals = (_lowq_quals(rng, B, L) if lowq else
+             rng.integers(33 + 2, 33 + 41, size=(B, L)).astype(np.uint8))
     lens = rng.integers(min(25, L), L + 1, size=B).astype(np.int32)
     mask = np.ones(B, bool)
     mask[rng.integers(0, B)] = False
@@ -466,24 +628,38 @@ def _pack(bases, quals, lens, mask, b5):
                           axis=1).astype(np.uint8)
 
 
-def _headline_params():
+def _params(flags):
     from fastplong_tpu_torch.main import build_parser, options_from_args
     from fastplong_tpu_torch.pipeline.device import kernel_params
-    argv = ["fastplong", "-i", "in.fq", "-o", "out.fq"] + HEADLINE
+    argv = ["fastplong", "-i", "in.fq", "-o", "out.fq"] + flags
     return kernel_params(options_from_args(
         build_parser().parse_args(argv[1:]), argv))
 
 
-def phase_step():
+def _region_rows(rows, cap):
+    """(active slots that carry a region number, slots with a mask span
+    mask_hi > mask_lo) in packed step rows."""
+    slot = rows[:, 5:5 + 6 * cap].reshape(len(rows), cap, 6)
+    active = (slot[..., 4] >> 10) & 1
+    return (int(((slot[..., 5] > 0) & (active == 1)).sum()),
+            int((slot[..., 3] > slot[..., 2]).sum()))
+
+
+def phase_step(flags=HEADLINE):
     """The fused step on CUDA against the port's CPU step, bit for bit:
-    packed rows and the statistics accumulator."""
+    packed rows and the statistics accumulator (break and mask runs get
+    low-quality stretches in their batches and must find regions: break
+    fragments with a region number, mask spans with mask_hi > mask_lo)."""
     import numpy as np
     import torch
     from fastplong_tpu_torch.pipeline.device import (build_fast_step,
                                                      global_stat_len,
+                                                     params_cap,
                                                      zero_stats_state)
-    p = _headline_params()
-    rng = np.random.default_rng(SEED + 1)
+    p = _params(flags)
+    lowq = p["break_enabled"] or p["mask_enabled"]
+    found = [0, 0]
+    rng = np.random.default_rng(SEED + 1 + lowq)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     fast_g, _ = build_fast_step(p, cuda)
     fast_c, _ = build_fast_step(p, cpu)
@@ -492,7 +668,7 @@ def phase_step():
     L = 8192
     tg = tc = 0.0
     for k in range(3):
-        batch = _rand_batch(rng, 256, L, plant=(START, END))
+        batch = _rand_batch(rng, 256, L, plant=(START, END), lowq=lowq)
         packed = torch.from_numpy(_pack(*batch, b5=(k != 2)))
         t0 = time.perf_counter()
         rows_g = fast_g(st_g, packed.to(cuda), L).cpu()
@@ -503,16 +679,29 @@ def phase_step():
         if not torch.equal(rows_g, rows_c):
             bad = (rows_g != rows_c).nonzero()[:5].tolist()
             raise AssertionError("step rows differ (batch %d): %s" % (k, bad))
+        found = [a + b for a, b in zip(found, _region_rows(rows_c.numpy(),
+                                                            params_cap(p)))]
     if not torch.equal(st_g.cpu(), st_c):
         raise AssertionError("step statistics state differs")
-    log("phase 4: fused step [256, %d] x 3 batches (base5, base5, wide) "
-        "bit-exact on cuda vs cpu, rows and state (host wall %.3f s cuda, "
-        "%.3f s cpu)" % (L, tg, tc))
+    if (p["break_enabled"] and not found[0]) or (
+            p["mask_enabled"] and not p["break_enabled"] and not found[1]):
+        raise AssertionError("step with %s found no region: %d fragments "
+                             "with a region number, %d mask spans"
+                             % (flags[len(HEADLINE):], *found))
+    log("phase 4: fused step, flags %s, [256, %d] x 3 batches (base5, "
+        "base5, wide) bit-exact on cuda vs cpu, rows and state (host wall "
+        "%.3f s cuda, %.3f s cpu); %d fragments with a region number, %d "
+        "mask spans"
+        % (" ".join(f for f in flags if len(f) < 5), L, tg, tc, *found))
 
 
-def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED):
+def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED, lowq=0.0):
     """The repo's headline input (bench.py gen_input): gamma(3, mean/3)
-    lengths with a floor of 100, 80% of reads with each adapter planted."""
+    lengths with a floor of 100, 80% of reads with each adapter planted.
+    lowq: the share of reads that get one to three stretches of 60-800
+    bases with quality bytes 35-41 (Q2-Q8) at random positions; these
+    rates only make break and mask find regions for a functional check,
+    and are not taken from measured reads."""
     import numpy as np
     rng = np.random.default_rng(seed)
     qtab = (rng.integers(33 + 5, 33 + 40, size=1 << 16)).astype(np.uint8)
@@ -529,6 +718,11 @@ def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED):
             if rng.random() < 0.8:
                 seq = np.concatenate([seq, e_arr])
             qual = qtab[rng.integers(0, 1 << 16, size=len(seq))]
+            if lowq and rng.random() < lowq:
+                for _ in range(int(rng.integers(1, 4))):
+                    p = int(rng.integers(0, len(seq)))
+                    k = min(int(rng.integers(60, 801)), len(seq) - p)
+                    qual[p:p + k] = rng.integers(35, 42, k)
             nbases += len(seq)
             chunks += [b"@read%d\n" % i, seq.tobytes(), b"\n+\n",
                        qual.tobytes(), b"\n"]
@@ -539,13 +733,13 @@ def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED):
     return nbases
 
 
-def run_cli(workdir, in_fq, tag, device, timer_dump=None):
+def run_cli(workdir, in_fq, tag, device, timer_dump=None, flags=HEADLINE):
     """One in-process CLI run; returns (wall seconds, output paths)."""
     from fastplong_tpu_torch.main import main
     outs = [os.path.join(workdir, tag + s)
             for s in (".fq", ".failed.fq", ".json", ".html")]
     argv = ["fastplong", "-i", in_fq, "-o", outs[0], "--failed_out",
-            outs[1], "-j", outs[2], "-h", outs[3]] + HEADLINE
+            outs[1], "-j", outs[2], "-h", outs[3]] + flags
     env = {"FASTPLONG_TORCH_DEVICE": device}
     if timer_dump:
         env["FASTPLONG_TIMER_DUMP"] = timer_dump
@@ -583,7 +777,7 @@ def _normalised(path):
     return data
 
 
-def check_report(out_fq, json_path, n_reads, n_bases):
+def check_report(out_fq, json_path, n_reads, n_bases, phase="5"):
     """The JSON report against the input and the trimmed FASTQ: every input
     read and base counted before filtering, every written record and base
     after it, and adapters found in the reads that carry them."""
@@ -605,18 +799,50 @@ def check_report(out_fq, json_path, n_reads, n_bases):
         raise AssertionError("report disagrees with the data: reads/bases "
                              "%s, expected %s; adapter-trimmed reads %d"
                              % (got, want, trimmed))
-    log("phase 5: report counts match the input (%d reads, %d bases) and "
+    log("phase %s: report counts match the input (%d reads, %d bases) and "
         "the output (%d reads, %d bases); %d reads adapter-trimmed"
-        % (want + (trimmed,)))
+        % ((phase,) + want + (trimmed,)))
 
 
-def kernel_wrappers():
+# kernel launches per step call on each path: one scan per distinct
+# adapter, one seed scan per trim side, three paired verifies (start trim,
+# end trim, middle), one statistics call before the filters and one for
+# each out-read slot after them (2 slots, 4 with break), and one region
+# launch for break and one for mask (all slots of a stage at once)
+PER_STEP = {
+    "headline": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
+                 "stat_batch": 3, "regions": 0},
+    "break_mask": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
+                   "stat_batch": 5, "regions": 2},
+    "mask": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
+             "stat_batch": 3, "regions": 1},
+}
+
+
+def kernel_wrappers(names):
+    """The wrappers whose `launches` count the kernels named (regions is
+    imported only when named, so that --walls runs in an older tree)."""
     from fastplong_tpu_torch.ops.adapter import seed_scan
     from fastplong_tpu_torch.ops.mismatch import mismatch_scan
     from fastplong_tpu_torch.ops.myers import myers_verify
     from fastplong_tpu_torch.ops.stats_kernels import stat_batch
-    return {"mismatch_scan": mismatch_scan, "myers_verify": myers_verify,
-            "seed_scan": seed_scan, "stat_batch": stat_batch}
+    wrappers = {"mismatch_scan": mismatch_scan, "myers_verify": myers_verify,
+                "seed_scan": seed_scan, "stat_batch": stat_batch}
+    if "regions" in names:
+        from fastplong_tpu_torch.ops.regions import detect_regions_summary
+        wrappers["regions"] = detect_regions_summary
+    return {n: wrappers[n] for n in names}
+
+
+def check_launches(launches, steps, path):
+    want = {n: c * steps for n, c in PER_STEP[path].items()}
+    missing = [n for n, c in launches.items() if c <= 0 < want[n]]
+    if missing:
+        raise AssertionError("kernels not launched on the %s path: %s"
+                             % (path, missing))
+    if launches != want:
+        raise AssertionError("launches %s, expected %s for %d steps"
+                             % (launches, want, steps))
 
 
 def phase_cli(workdir, walls_only=False):
@@ -640,7 +866,9 @@ def phase_cli(workdir, walls_only=False):
 
     # three runs of the same CLI in this process, for the host's spread;
     # the launch counts are set to 0 before each run and read after it
-    wrappers = kernel_wrappers()
+    wrappers = kernel_wrappers(
+        ("mismatch_scan", "myers_verify", "seed_scan", "stat_batch")
+        if walls_only else tuple(PER_STEP["headline"]))
     walls = []
     for k in range(3):
         for w in wrappers.values():
@@ -657,22 +885,8 @@ def phase_cli(workdir, walls_only=False):
             % (k, nbases, wall, nbases / wall / 1e6, timing["step_calls"],
                json.dumps(launches)))
         log("phase 5:   seconds " + json.dumps(timing))
-        if walls_only:
-            continue
-        missing = [n for n, c in launches.items() if c <= 0]
-        if missing:
-            raise AssertionError("kernels not launched on the main path: %s"
-                                 % missing)
-        # per step: one scan per distinct adapter, one seed scan per trim
-        # side, three paired verifies (start trim, end trim, middle) and
-        # three statistics calls (pre-filter, two post-filter slots) of
-        # one launch each
-        steps = timing["step_calls"]
-        want = {"mismatch_scan": 2 * steps, "myers_verify": 3 * steps,
-                "seed_scan": 2 * steps, "stat_batch": 3 * steps}
-        if launches != want:
-            raise AssertionError("launches %s, expected %s for %d steps"
-                                 % (launches, want, steps))
+        if not walls_only:
+            check_launches(launches, timing["step_calls"], "headline")
     med = statistics.median(walls)
     log("phase 5: headline wall median %.3f s (%.2f Mbases/s), range "
         "%.3f-%.3f s over 3 runs" % (med, nbases / med / 1e6, min(walls),
@@ -682,50 +896,135 @@ def phase_cli(workdir, walls_only=False):
         cpu_parity(workdir, in_fq, outs_g, nbases)
     _, evs = profile_cli(workdir, in_fq)
     if not walls_only:
-        stray = [e.key for e in evs if "index_add" in e.key
-                 or "indexFunc" in e.key]
-        if stray:
-            raise AssertionError("index_add_ still runs on the device: %s"
-                                 % stray)
+        no_index_add(evs)
     return launches, torch.cuda.get_device_name(0)
 
 
-def cpu_parity(workdir, in_fq, outs_g, nbases):
+def no_index_add(evs):
+    stray = [e.key for e in evs if "index_add" in e.key
+             or "indexFunc" in e.key]
+    if stray:
+        raise AssertionError("index_add_ still runs on the device: %s"
+                             % stray)
+
+
+def run_counted(workdir, in_fq, tag, flags, path, phase):
+    """One CUDA CLI run with the launch counts of `path`'s kernels set to 0
+    before it and checked after it; returns (launches, output paths)."""
+    wrappers = kernel_wrappers(tuple(PER_STEP[path]))
+    for w in wrappers.values():
+        w.launches = 0
+    dump = os.path.join(workdir, "timer_%s.json" % tag)
+    wall, outs_g = run_cli(workdir, in_fq, tag, "cuda", timer_dump=dump,
+                           flags=flags)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    with open(dump) as f:
+        timing = json.load(f)
+    log("phase %s: %s CLI on cuda (a functional check): wall %.3f s; %d "
+        "step calls; kernel launches %s"
+        % (phase, " ".join(flags[len(HEADLINE):]), wall,
+           timing["step_calls"], json.dumps(launches)))
+    log("phase %s:   seconds %s" % (phase, json.dumps(timing)))
+    check_launches(launches, timing["step_calls"], path)
+    return launches, outs_g
+
+
+def phase_break_mask(workdir):
+    """The headline flags with break and mask (-b -N, default windows)
+    over a 64-Mbase input with low-quality stretches in 30% of its reads:
+    one CUDA run with its launch counts, fragments and failed reads, byte
+    parity with the CPU run, and a profile.  Returns (launches, input
+    path, its bases)."""
+    in_fq = os.path.join(workdir, "lowq.fq")
+    flags = HEADLINE + ["-b", "-N"]
+    t0 = time.perf_counter()
+    nbases = gen_input(in_fq, seed=8, lowq=0.3)
+    log("phase 5b: input %d reads, %d bases (30%% with Q2-Q8 stretches), "
+        "made in %.1f s" % (8000, nbases, time.perf_counter() - t0))
+    launches, outs_g = run_counted(workdir, in_fq, "bm_cuda", flags,
+                                   "break_mask", "5b")
+    with open(outs_g[0], "rb") as f:
+        fragments = len(re.findall(rb"^@r[0-9]+-", f.read(), re.M))
+    failed = os.path.getsize(outs_g[1])
+    log("phase 5b: %d rN- fragments in the output, failed reads %d B"
+        % (fragments, failed))
+    if not fragments or not failed:
+        raise AssertionError("the break-and-mask run wrote no fragment or "
+                             "no failed read")
+    cpu_parity(workdir, in_fq, outs_g, nbases, flags=flags, phase="5b")
+    _, evs = profile_cli(workdir, in_fq, flags=flags, phase="5b")
+    no_index_add(evs)
+    return launches, in_fq, nbases
+
+
+def _n_runs(path, window):
+    """(records, records whose sequence holds a run of at least `window`
+    N) in a FASTQ file."""
+    records = runs = 0
+    pat = re.compile(rb"N{%d,}" % window)
+    with open(path, "rb") as f:
+        for i, line in enumerate(f):
+            if i % 4 == 1:
+                records += 1
+                runs += pat.search(line) is not None
+    return records, runs
+
+
+def phase_mask(workdir, in_fq, nbases):
+    """The headline flags with N-masking alone (-N, default window 50 at
+    Q10) over phase 5b's input, where the mask is not preceded by break:
+    one CUDA run with its launch counts; most N-masked reads fail the
+    default N limit (-n: more than 10% N), so the failed-reads file must
+    hold reads with runs of N at least one window long; byte parity with
+    the CPU run."""
+    flags = HEADLINE + ["-N"]
+    _, outs_g = run_counted(workdir, in_fq, "n_cuda", flags, "mask", "5c")
+    out_n = _n_runs(outs_g[0], 50)
+    failed_n = _n_runs(outs_g[1], 50)
+    log("phase 5c: reads with a run of >= 50 N: %d of %d written, %d of %d "
+        "failed" % (out_n[1], out_n[0], failed_n[1], failed_n[0]))
+    if not failed_n[1]:
+        raise AssertionError("the -N run wrote no read masked over a whole "
+                             "window")
+    cpu_parity(workdir, in_fq, outs_g, nbases, flags=flags, phase="5c")
+
+
+def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5"):
     """The same CLI on the CPU; its four outputs must equal the CUDA
     run's."""
     t0 = time.perf_counter()
-    _, outs_c = run_cli(workdir, in_fq, "cpu", "cpu")
-    log("phase 5: the same CLI on the cpu in %.1f s"
-        % (time.perf_counter() - t0))
+    _, outs_c = run_cli(workdir, in_fq, "cpu", "cpu", flags=flags)
+    log("phase %s: the same CLI on the cpu in %.1f s"
+        % (phase, time.perf_counter() - t0))
     for g, c in zip(outs_g, outs_c):
         a, b = _normalised(g), _normalised(c)
         if a != b:
             raise AssertionError("%s differs between cuda and cpu runs"
                                  % os.path.basename(g))
-    log("phase 5: whole-input outputs identical on cuda and cpu "
+    log("phase %s: whole-input outputs identical on cuda and cpu "
         "(fastq %d B, failed %d B, json %d B, html %d B)"
-        % tuple(os.path.getsize(p) for p in outs_g))
-    check_report(outs_g[0], outs_g[2], 8000, nbases)
+        % ((phase,) + tuple(os.path.getsize(p) for p in outs_g)))
+    check_report(outs_g[0], outs_g[2], 8000, nbases, phase)
 
 
-def profile_cli(workdir, in_fq):
+def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5"):
     """One profiled CUDA run: its wall, device time, op count and top
     device ops; returns (wall, device events)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pwall, _ = run_cli(workdir, in_fq, "prof", "cuda")
+        pwall, _ = run_cli(workdir, in_fq, "prof", "cuda", flags=flags)
     evs = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) is not None
            and str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in evs)
-    log("phase 5: profiled run wall %.3f s; device busy %.3f ms in %d "
+    log("phase %s: profiled run wall %.3f s; device busy %.3f ms in %d "
         "device ops = %.1f%% of that wall"
-        % (pwall, busy_us / 1e3, sum(e.count for e in evs),
+        % (phase, pwall, busy_us / 1e3, sum(e.count for e in evs),
            100.0 * busy_us / 1e6 / pwall))
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
-        log("phase 5:   %9.3f ms %6d x %s" % (
-            e.self_device_time_total / 1e3, e.count, e.key[:100]))
+        log("phase %s:   %9.3f ms %6d x %s" % (
+            phase, e.self_device_time_total / 1e3, e.count, e.key[:100]))
     return pwall, evs
 
 
@@ -760,7 +1059,12 @@ def main():
             return 0
         rec = phase_kernels()
         phase_step()
+        phase_step(HEADLINE + ["-b", "-N"])
+        phase_step(HEADLINE + ["-N"])
         launches, kind = phase_cli(workdir)
+        bm, lowq_fq, lowq_bases = phase_break_mask(workdir)
+        launches["regions"] = bm["regions"]
+        phase_mask(workdir, lowq_fq, lowq_bases)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     from fastplong_tpu_torch.ops.cuda_lib import CSRC
@@ -769,9 +1073,13 @@ def main():
         "mismatch_scan": "fastplong_tpu/ops/pallas_kernels.py:56",
         "myers_verify": "fastplong_tpu/ops/myers.py:149",
         "seed_scan": "fastplong_tpu/ops/adapter.py:195",
-        "stat_batch": "fastplong_tpu/ops/stats_kernels.py:23"}
+        "stat_batch": "fastplong_tpu/ops/stats_kernels.py:23",
+        "regions": "fastplong_tpu/ops/regions.py:36"}
+    # launches: each kernel's count on its own path, set to 0 just before
+    # that run and read just after it (the headline for the first four,
+    # the break-and-mask run for the region scan)
     kernels = []
-    for name in ("mismatch_scan", "myers_verify", "seed_scan", "stat_batch"):
+    for name in replaces:
         r = rec[name]
         kernels.append(dict(
             name=name, route="cuda", source="%s/%s.cu" % (src, name),

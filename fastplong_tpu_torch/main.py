@@ -346,10 +346,6 @@ def unsupported(opt, argv):
         return "--prewarm is not ported yet (ROADMAP A.19)"
     if opt.profile_dir:
         return "--profile is not ported yet (ROADMAP A.19)"
-    if opt.break_opt.enabled:
-        return "-b/--break is not ported yet (ROADMAP A.11)"
-    if opt.mask.enabled:
-        return "-N/--mask is not ported yet (ROADMAP A.11)"
     if opt.devices > 1:
         return "--devices above 1 is not ported yet (ROADMAP A.17)"
     if opt.num_hosts > 1:

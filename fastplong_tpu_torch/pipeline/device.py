@@ -5,11 +5,11 @@ one padded [B, L] batch — the replacement for the reference's per-read
 worker loop (src/seprocessor.cpp:180-329):
 
   pre-stats -> trimAndCut -> polyX -> adapter trims (start/end/FASTA) ->
-  middle-adapter split -> filters -> post-stats
+  middle-adapter split -> break by low-quality regions -> N-mask ->
+  filters -> post-stats
 
-Break-by-quality (-b) and N-masking (-N) are not ported yet; a step asked
-for them raises.  The step is built from the plain parameter dict that
-kernel_params(opt) returns, so the JAX package's dict drives it unchanged.
+The step is built from the plain parameter dict that kernel_params(opt)
+returns, so the JAX package's dict drives it unchanged.
 
 Each batch produces one packed int32 row per read (layout in
 make_fast_fn) and adds its statistic partials into one device-resident
@@ -17,6 +17,8 @@ make_fast_fn) and adds its statistic partials into one device-resident
 updated in place, so it is drained once, at the end of the run, without
 any risk of overflow.
 """
+
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -26,14 +28,20 @@ from ..common import PASS_FILTER
 from ..ops.adapter import (AdapterSpec, trim_by_sequence_start,
                            trim_by_sequence_end, find_middle_adapters,
                            _mismatch_full)
-from ..ops.filters import pass_filter
+from ..ops.filters import N_CHAR, pass_filter
 from ..ops.polyx import trim_polyx
+from ..ops.primitives import arange, qual_cumsum
 from ..ops.qualcut import trim_and_cut
+from ..ops.regions import detect_regions_summary
 from ..ops.stats_kernels import stat_batch
 
 TAG_NONE = 0
 TAG_SPLIT_LEFT = 1
 TAG_SPLIT_RIGHT = 2
+
+# The out-read candidates of a batch: each field is [S, B], one row per
+# slot (S = 1, 2 after the middle split, twice that after break).
+Slots = namedtuple("Slots", "lo hi active tag region_no is_parent")
 
 
 def kernel_params(opt):
@@ -96,8 +104,9 @@ def adapter_stages(p):
 
 def params_cap(p):
     """Out-read slots per input read: the middle-adapter split can make
-    two."""
-    return 2 if p["adapter_enabled"] else 1
+    two, and break splits each into a head and a tail fragment."""
+    cap = 2 if p["adapter_enabled"] else 1
+    return 2 * cap if p["break_enabled"] else cap
 
 
 def params_fields(p):
@@ -113,10 +122,46 @@ def out_fields(opt):
     return params_fields(kernel_params(opt))
 
 
-def _check_supported(p):
-    if p["break_enabled"] or p["mask_enabled"]:
-        raise NotImplementedError(
-            "break (-b) and N-mask (-N) are not ported yet (ROADMAP A.11)")
+def _regions(s, cq, window, quality):
+    """Region summaries of every slot's span, one kernel launch for all
+    slots (an inactive slot's span is empty)."""
+    return detect_regions_summary(
+        cq, s.lo, torch.where(s.active, s.hi, s.lo), window,
+        (33 + quality) * window)
+
+
+def break_slots(s, cq, window, quality):
+    """-b: each slot becomes slot A (the whole slot where it has no region,
+    else its head fragment, or its tail where it has no head) and slot B
+    (the tail where it has both), ordered A0, B0, A1, B1, ...
+    (reference Read::breakByRegions, read.cpp:227-262)."""
+    ws1, last_end, count = _regions(s, cq, window, quality)
+    has = s.active & (count > 0)
+    head = has & (ws1 > 0)
+    tail = has & (last_end < s.hi - s.lo - 1)
+    tail_lo = s.lo + last_end + 1
+    a = Slots(torch.where(~head & tail, tail_lo, s.lo),
+              torch.where(head, s.lo + ws1, s.hi),
+              s.active & (~has | head | tail), s.tag,
+              torch.where(head, 1, torch.where(tail, count + 1, 0)),
+              s.is_parent & ~has)
+    b = Slots(tail_lo, s.hi, head & tail, s.tag, count + 1,
+              torch.zeros_like(has))
+    return Slots(*(torch.stack([x, y], dim=1).flatten(0, 1)
+                   for x, y in zip(a, b)))
+
+
+def mask_slots(bases, s, cq, window, quality):
+    """-N: (bases with every slot's region span written as N, mask_lo,
+    mask_hi [S, B] absolute; 0, 0 where a slot has no region)
+    (reference Read::maskRegionWithN, read.cpp:217-225)."""
+    ws1, last_end, count = _regions(s, cq, window, quality)
+    has = s.active & (count > 0)
+    m_lo = torch.where(has, s.lo + ws1, 0)
+    m_hi = torch.where(has, s.lo + last_end + 1, 0)
+    idx = arange(bases.shape[1], bases)
+    masked = ((idx >= m_lo[..., None]) & (idx < m_hi[..., None])).any(dim=0)
+    return torch.where(masked, N_CHAR, bases), m_lo, m_hi
 
 
 def build_step(p, device=None, with_stats=True):
@@ -126,7 +171,6 @@ def build_step(p, device=None, with_stats=True):
     step(bases, quals, lens, read_mask) -> dict of per-read results;
     with_stats=False omits the statistics reductions ("pre"/"posts" are
     None and medians are not available)."""
-    _check_supported(p)
     device = resolve_device(device)
     stages = adapter_stages(p)
     specs = [AdapterSpec(seq, p["ed_max"], device) for seq, _ in stages]
@@ -185,8 +229,7 @@ def build_step(p, device=None, with_stats=True):
         zero = torch.zeros((B,), **i32)
         false = torch.zeros((B,), dtype=torch.bool, device=bases.device)
 
-        # ---- middle adapter split (breakByGap); slots are
-        # (lo, hi, active, tag, is_parent)
+        # ---- middle adapter split (breakByGap)
         if middle_specs is not None:
             found, mstart, mlen = find_middle_adapters(
                 bases, lo, hi, middle_specs[0], middle_specs[1], p["ext"],
@@ -206,32 +249,50 @@ def build_step(p, device=None, with_stats=True):
             s0_tag = torch.where(s0_is_parent, TAG_NONE,
                                  torch.where(s0_is_left, TAG_SPLIT_LEFT,
                                              TAG_SPLIT_RIGHT)).to(torch.int32)
-            slots = [
-                (s0_lo, s0_hi, ~null & (~found | has_left | has_right),
-                 s0_tag, s0_is_parent),
-                (lo + mstart + mlen, hi, has_left & has_right,
-                 zero + TAG_SPLIT_RIGHT, false),
-            ]
+            slots = Slots(
+                torch.stack([s0_lo, lo + mstart + mlen]),
+                torch.stack([s0_hi, hi]),
+                torch.stack([~null & (~found | has_left | has_right),
+                             has_left & has_right]),
+                torch.stack([s0_tag, zero + TAG_SPLIT_RIGHT]),
+                torch.zeros((2, B), **i32),
+                torch.stack([s0_is_parent, false]))
         else:
-            slots = [(lo, hi, ~null, zero, ~false)]
+            slots = Slots(lo[None], hi[None], ~null[None], zero[None],
+                          zero[None], ~false[None])
+
+        # ---- break by low-quality regions, then N-mask every final slot;
+        # the mask lands in the bases that the filters and post-stats read
+        cq = (qual_cumsum(quals, lens)
+              if p["break_enabled"] or p["mask_enabled"] else None)
+        if p["break_enabled"]:
+            slots = break_slots(slots, cq, p["break_window"],
+                                p["break_quality"])
+        bases_eff = bases
+        mask_lo = mask_hi = torch.zeros_like(slots.lo)
+        if p["mask_enabled"]:
+            bases_eff, mask_lo, mask_hi = mask_slots(
+                bases, slots, cq, p["mask_window"], p["mask_quality"])
 
         # ---- filters + post-stats per out-read slot
         codes, passed, posts = [], [], []
-        for s_lo, s_hi, s_active, _, _ in slots:
-            code_c = pass_filter(bases, quals, s_lo, s_hi, lens, **p["filt"])
-            pass_c = (code_c == PASS_FILTER) & s_active
+        for c in range(slots.lo.shape[0]):
+            s_lo, s_hi = slots.lo[c], slots.hi[c]
+            code_c = pass_filter(bases_eff, quals, s_lo, s_hi, lens,
+                                 **p["filt"])
+            pass_c = (code_c == PASS_FILTER) & slots.active[c]
             codes.append(code_c)
             passed.append(pass_c)
-            posts.append(stat_batch(bases, quals, s_lo, s_hi, pass_c)
+            posts.append(stat_batch(bases_eff, quals, s_lo, s_hi, pass_c)
                          if with_stats else None)
 
-        active = torch.stack([s[2] for s in slots], dim=1)
+        active = slots.active.T
         return {
             "lo": lo, "hi": hi, "null": null,
-            "out_lo": torch.stack([s[0] for s in slots], dim=1),
-            "out_hi": torch.stack([s[1] for s in slots], dim=1),
-            "out_tag": torch.stack([s[3] for s in slots], dim=1),
-            "is_parent": torch.stack([s[4] for s in slots], dim=1),
+            "out_lo": slots.lo.T, "out_hi": slots.hi.T,
+            "out_tag": slots.tag.T, "region_no": slots.region_no.T,
+            "is_parent": slots.is_parent.T,
+            "mask_lo": mask_lo.T, "mask_hi": mask_hi.T,
             "active": active,
             "n_out": active.sum(dim=1, dtype=torch.int32),
             "code": torch.stack(codes, dim=1),
@@ -425,8 +486,9 @@ def build_fast_step(p, device=None, with_stats=True):
                     | (i32(out["is_parent"][:, c]) << 9)
                     | (i32(out["active"][:, c]) << 10)
                     | (post_median << 11))
-            cols += [out["out_lo"][:, c], out["out_hi"][:, c], zero, zero,
-                     misc, zero]
+            cols += [out["out_lo"][:, c], out["out_hi"][:, c],
+                     out["mask_lo"][:, c], out["mask_hi"][:, c], misc,
+                     out["region_no"][:, c]]
         cols += list(out["adapter_recs"].unbind(1))
         return out, torch.stack([i32(c) for c in cols], dim=1)
 

@@ -38,7 +38,7 @@ from .device import (build_fast_step, global_stat_len, kernel_params,
                      zero_stats_state)
 from .emit import emit_block_fast
 from .host_stats import (BatchStatAccumulator, HostStatAccumulator,
-                         median_qual)
+                         masked_span, median_qual)
 
 MAX_IN_FLIGHT = 3          # batches dispatched but not yet consumed
 MAX_BLOCKS_PENDING = 24    # parsed blocks held before forcing drains
@@ -113,6 +113,7 @@ class SingleEndRunner:
         self.device = resolve_device(device)
         self.params = kernel_params(opt)
         self.cap = params_cap(self.params)
+        self.mask_on = self.params["mask_enabled"]
         self.step, self.stages = build_fast_step(self.params, self.device)
         self._nostats_step = None
         self.stat_cap = stat_device_cap()
@@ -345,9 +346,12 @@ class SingleEndRunner:
             pass_c = out.passed[:, c]
             if not pass_c.any():
                 continue
+            m_lo, m_hi = ((out.mask_lo[:, c].astype(np.int64),
+                           out.mask_hi[:, c].astype(np.int64))
+                          if self.mask_on else (None, None))
             med = self._batch_post.add_rows(
                 batch.packed, batch.L, out.out_lo[:, c].astype(np.int64),
-                out.out_hi[:, c].astype(np.int64), None, None, pass_c,
+                out.out_hi[:, c].astype(np.int64), m_lo, m_hi, pass_c,
                 batch.layout)
             out.post_median[:, c] = np.where(pass_c, med,
                                              out.post_median[:, c])
@@ -377,7 +381,10 @@ class SingleEndRunner:
                         continue
                     lo = int(out.out_lo[row, c])
                     hi = int(out.out_hi[row, c])
-                    self._host_post.add_read(seq[lo:hi], qual[lo:hi])
+                    b_eff = (masked_span(seq, lo, hi, out.mask_lo[row, c],
+                                         out.mask_hi[row, c])
+                             if self.mask_on else seq[lo:hi])
+                    self._host_post.add_read(b_eff, qual[lo:hi])
                     out.post_median[row, c] = median_qual(qual[lo:hi])
         self.timer.add("host_stats", time.perf_counter() - t0)
 
@@ -423,7 +430,7 @@ class SingleEndRunner:
 
     def _emit(self, block, res):
         out_b, failed_b = emit_block_fast(
-            block, res, self.cap, False, self.out_writer is not None,
+            block, res, self.cap, self.mask_on, self.out_writer is not None,
             self.failed_writer is not None)
         if out_b and self.out_writer is not None:
             self.out_writer.write(out_b)

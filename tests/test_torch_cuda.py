@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fastplong_tpu_torch.ops import adapter as tadapter
+from fastplong_tpu_torch.ops import regions as tregions
 from fastplong_tpu_torch.ops import stats_kernels as tstats
 from fastplong_tpu_torch.ops.mismatch import mismatch_scan
 from fastplong_tpu_torch.ops.myers import (myers_verify, myers_verify_pair,
@@ -186,3 +187,53 @@ def test_stat_batch_on_card(card, shape, zero_lo):
     ref = tstats.stat_batch_plain(*arrs, zero_lo=zero_lo)
     for k, v in ref.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 15, 50, 100, 299, 300, 301, 1000])
+def test_regions_edges_on_card(card, w):
+    """The region scan against its plain version, all three outputs
+    exactly, on chip_smoke.py's edge batch (w = 1, w beyond L and beyond
+    short spans, inactive slots, spans reaching L, non-zero lo, the
+    many-regions pattern, rows with no region), in the [B] form and the
+    stacked [2, B] form, one launch each."""
+    from chip_smoke import _region_edge_batch
+    from fastplong_tpu_torch.ops.primitives import qual_cumsum
+    rng = np.random.default_rng(w)
+    quals, lens, lo, hi = (torch.from_numpy(a).to(card)
+                           for a in _region_edge_batch(rng))
+    cq = qual_cumsum(quals, lens)
+    for q in (10, 20):
+        for a, b in ((lo[0], hi[0]), (lo, hi)):
+            args = (cq, a, b, w, (33 + q) * w)
+            before = tregions.detect_regions_summary.launches
+            got = tregions.detect_regions_summary(*args)
+            torch.cuda.synchronize()
+            assert tregions.detect_regions_summary.launches == before + 1
+            ref = tregions.detect_regions_summary_plain(*args)
+            for g, r in zip(got, ref):
+                assert g.shape == a.shape and torch.equal(g, r), (q, a.dim())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1100, 8192), (3, 20000), (64, 700)])
+def test_regions_stacked_on_card(card, shape):
+    """The main path's two forms (break over 2 slots at window 100, mask
+    over the 4 slots break leaves at window 50, Q10) against the plain
+    version, with chip_smoke.py's low-quality stretches and slots."""
+    from chip_smoke import _lowq_quals, _region_spans
+    from fastplong_tpu_torch.ops.primitives import qual_cumsum
+    from fastplong_tpu_torch.pipeline.device import break_slots
+    B, L = shape
+    rng = np.random.default_rng(B + L)
+    lens = rng.integers(L // 2 + 1, L + 1, B).astype(np.int32)
+    quals = torch.from_numpy(_lowq_quals(rng, B, L)).to(card)
+    cq = qual_cumsum(quals, torch.from_numpy(lens).to(card))
+    two = _region_spans(rng, lens)
+    for s, w in ((two, 100), (break_slots(two, cq, 100, 10), 50)):
+        args = (cq, s.lo, torch.where(s.active, s.hi, s.lo), w, 43 * w)
+        got = tregions.detect_regions_summary(*args)
+        torch.cuda.synchronize()
+        ref = tregions.detect_regions_summary_plain(*args)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), w

@@ -110,8 +110,6 @@ def test_step_without_card_fails(tmp_path, no_card):
 
 
 UNSUPPORTED = [
-    ("break", ["-b"], {}, "A.11"),
-    ("mask", ["-N"], {}, "A.11"),
     ("devices", ["--devices", "2"], {}, "A.17"),
     ("num_hosts", ["--num_hosts", "2"], {}, "A.18"),
     ("split", ["--split", "2"], {}, "A.15"),

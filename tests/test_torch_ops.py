@@ -16,6 +16,7 @@ from fastplong_tpu.ops import filters as jf
 from fastplong_tpu.ops import polyx as jp
 from fastplong_tpu.ops import primitives as jpr
 from fastplong_tpu.ops import qualcut as jq
+from fastplong_tpu.ops import regions as jr
 from fastplong_tpu.ops import stats_kernels as js
 from fastplong_tpu_torch.ops import adapter as ta
 from fastplong_tpu_torch.ops import align as tal
@@ -23,6 +24,7 @@ from fastplong_tpu_torch.ops import filters as tf
 from fastplong_tpu_torch.ops import polyx as tp
 from fastplong_tpu_torch.ops import primitives as tpr
 from fastplong_tpu_torch.ops import qualcut as tq
+from fastplong_tpu_torch.ops import regions as tr
 from fastplong_tpu_torch.ops import stats_kernels as ts
 
 START = "AATGTACTTCGTTCAGTTACGTATTGCT"
@@ -321,3 +323,135 @@ def test_find_middle_adapters_matches_jax(lengths):
     ext = int(rng.integers(0, 12))
     _eq(ta.find_middle_adapters(*_t(bases, lo, hi), st, et, ext),
         ja.find_middle_adapters(*_j(bases, lo, hi), sj, ej, ext))
+
+
+# ---- low-quality regions: tests/test_regions.py's four patterns, the edge
+# cases of the kernel's contract and the stacked [S, B] form
+
+def _lowq_rows(case, rng, L=640):
+    """(quals [B, L], lens, lo, hi) of one pattern of tests/test_regions.py:
+    random qualities, alternating low/high blocks, many regions (~/#
+    blocks), and blocks behind an 11-byte offset of '~'."""
+    def blocks(n):
+        out = []
+        while len(out) < n:
+            lvl = (35, 45) if rng.random() < 0.5 else (63, 74)
+            out.extend(rng.integers(*lvl, size=int(rng.integers(5, 60))))
+        return out[:n]
+
+    if case == "random":
+        rows = [list(rng.integers(33, 75, int(rng.integers(0, 280))))
+                for _ in range(64)]
+    elif case == "blocky":
+        rows = [blocks(int(rng.integers(50, 280))) for _ in range(64)]
+    elif case == "many":
+        rows = []
+        for _ in range(32):
+            r = []
+            for _ in range(10):
+                r += [126] * int(rng.integers(10, 30))
+                r += [35] * int(rng.integers(10, 30))
+            rows.append(r)
+    else:   # offset
+        rows = [[126] * 11 + blocks(200) for _ in range(16)]
+    B = len(rows)
+    quals = np.zeros((B, L), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for i, r in enumerate(rows):
+        quals[i, :len(r)] = r
+        lens[i] = len(r)
+    lo = np.full(B, 11 if case == "offset" else 0, np.int32)
+    return quals, lens, lo, lens.copy()
+
+
+def _regions_eq(quals, lens, lo, hi, w, q):
+    got = tr.detect_regions(*_t(quals, lens, lo, hi), w, q)
+    ref = jr.detect_regions(*_j(quals, lens, lo, hi), w, q)
+    for k in ("ws1", "last_end", "count"):
+        assert got[k].dtype == torch.int32, k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+    return got
+
+
+REGION_CASES = [("random", 20, 15), ("random", 7, 20), ("random", 1, 10),
+                ("blocky", 20, 15), ("blocky", 10, 25), ("blocky", 50, 10),
+                ("many", 10, 10), ("many", 5, 5), ("offset", 20, 15)]
+
+
+@pytest.mark.parametrize("case,w,q", REGION_CASES,
+                         ids=["%s-w%d-q%d" % c for c in REGION_CASES])
+def test_regions_match_jax(case, w, q):
+    rng = np.random.default_rng(sum(map(ord, case)) + w)
+    got = _regions_eq(*_lowq_rows(case, rng), w, q)
+    assert int(got["count"].sum()) > 0
+    if case == "many":
+        assert int(got["count"].max()) >= 2
+
+
+def _region_edges(seed, B=40, L=300):
+    """Random and blocky quality rows with the span cases of the kernel's
+    contract: inactive slots (hi = lo, at 0 and inside the row), spans that
+    reach L, non-zero lo, spans past the read's length, short spans, and
+    high-quality rows with no region."""
+    rng = np.random.default_rng(seed)
+    quals = rng.integers(33 + 2, 33 + 41, (B, L)).astype(np.uint8)
+    for i in range(0, B, 3):
+        a = int(rng.integers(0, L - 40))
+        quals[i, a:a + int(rng.integers(20, 120))] = rng.integers(35, 41)
+    quals[B - 4:] = 33 + 40
+    lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lo = rng.integers(0, 60, B).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, L, B), L).astype(np.int32)
+    cases = [(0, 0), (37, 37), (0, L), (5, L), (L - 1, L), (L, L),
+             (120, 140), (0, 1), (250, L), (3, 299)]
+    for i, (a, b) in enumerate(cases):
+        lo[i], hi[i] = a, b
+    lens[:4] = L
+    quals[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return quals, lens, lo, hi
+
+
+@pytest.mark.parametrize("w", [-3, 0, 1, 2, 50, 100, 299, 300, 301, 1000])
+def test_region_edges_match_jax(w):
+    """w <= 0, w = 1, w > l for the short spans, and w = L - 1, L, L + 1 and
+    far beyond L, each over the edge batch."""
+    got = _regions_eq(*_region_edges(w + 10), w, 10)
+    if 0 < w <= 100:
+        assert int(got["count"].sum()) > 0
+    if w > 300 or w <= 0:
+        assert int(got["count"].sum()) == 0
+
+
+@pytest.mark.parametrize("S,w", [(2, 100), (4, 50)])
+def test_regions_stacked_match_jax(S, w):
+    """The [S, B] form the step uses (break over 2 slots at the default
+    window 100, mask over 4 at 50, Q10), against one JAX call per slot."""
+    quals, lens, _, _ = _region_edges(S, B=24, L=700)
+    rng = np.random.default_rng(S)
+    for i in range(0, 24, 2):
+        a = int(rng.integers(0, 500))
+        quals[i, a:a + int(rng.integers(60, 200))] = rng.integers(35, 42)
+    quals[np.arange(700)[None, :] >= lens[:, None]] = 0
+    cut = np.sort(rng.integers(0, 701, (S + 1, 24)), axis=0).astype(np.int32)
+    lo, hi = cut[:-1], cut[1:]
+    hi[-1, :3] = lo[-1, :3]                   # inactive slots
+    T = (33 + 10) * w
+    cq_t = tpr.qual_cumsum(*_t(quals, lens))
+    cq_j = jpr.qual_cumsum(*_j(quals, lens))
+    got = tr.detect_regions_summary(cq_t, *_t(lo, hi), w, T)
+    assert all(g.shape == (S, 24) for g in got)
+    for k in range(S):
+        ref = jr.detect_regions_summary(cq_j, *_j(lo[k], hi[k]), w, T)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(r))
+    assert int(got[2].sum()) > 0
+
+
+def test_regions_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a card gets an error,
+    never the plain version."""
+    cq = torch.empty((2, 65), dtype=torch.int32, device="meta")
+    span = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tr.detect_regions_summary(cq, span, span, 10, 430)

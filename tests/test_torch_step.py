@@ -2,9 +2,10 @@
 
 The JAX package's own kernel_params dict drives the port's step, and both
 steps get the same packed batches (tests/test_host_step.py's recipe, both
-row layouts, L in {128, 1024}): the packed per-read rows and the drained
-[2, F] statistics state must be identical (tolerance 0), with statistics
-on and off.
+row layouts, L in {128, 1024}, with low-quality stretches planted where
+break or mask is on): the packed per-read rows and the drained [2, F]
+statistics state must be identical (tolerance 0), with statistics on and
+off.
 """
 
 import numpy as np
@@ -20,16 +21,34 @@ from fastplong_tpu_torch.pipeline import device as tdev
 START = "AATGTACTTCGTTCAGTTACGTATTGCT"
 END = "AGCAATACGTAACTGAACGAAGT"
 
-# tests/test_host_step.py's configurations without break/mask (not ported)
+HEADLINE = ["-s", START, "-e", END, "-5", "-3", "-x"]
+
+# tests/test_host_step.py's configurations, and break (-b) and N-mask (-N)
+# alone, together and on the headline
 CONFIGS = [
     ("filters_only", ["-A"]),
     ("adapters", ["-s", START, "-e", END]),
-    ("headline", ["-s", START, "-e", END, "-5", "-3", "-x"]),
+    ("headline", HEADLINE),
     ("everything", ["-s", START, "-e", END, "-5", "-3", "-x", "-y",
                     "-f", "2", "-t", "1", "-m", "8"]),
     ("cut_only", ["-A", "-5", "-3", "-W", "7", "-M", "25"]),
     ("start_only_polyx", ["-s", START, "-x", "--poly_x_min_len", "8",
                           "--trimming_extension", "3"]),
+    ("break_mask", ["-s", START, "-b", "--break_window_size", "20",
+                    "--break_mean_quality", "22", "-N",
+                    "--mask_window_size", "15", "--mask_mean_quality",
+                    "20"]),
+    ("filters_break", ["-A", "-b"]),
+    ("filters_mask", ["-A", "-N", "--mask_window_size", "20",
+                      "--mask_mean_quality", "20"]),
+    ("headline_break_mask", HEADLINE + ["-b", "--break_window_size", "20",
+                                        "--break_mean_quality", "22",
+                                        "-N"]),
+    # break only at the planted stretches, and a mask strict enough to
+    # find regions in the fragments that break leaves
+    ("headline_break_mask_fragments", HEADLINE + [
+        "-b", "--break_window_size", "20", "--break_mean_quality", "12",
+        "-N", "--mask_window_size", "15", "--mask_mean_quality", "20"]),
 ]
 
 
@@ -48,7 +67,10 @@ def _topt(extra):
         tmain.build_parser().parse_args(argv[1:]), argv)
 
 
-def _rand_batch(rng, B, L, plant=()):
+def _rand_batch(rng, B, L, plant=(), lowq=False):
+    """tests/test_host_step.py's batches; lowq plants a stretch of Q2-Q8
+    qualities in every other row, so that the default break and mask
+    windows find regions."""
     bases = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(B, L),
                        p=[.24, .24, .24, .24, .04])
     quals = rng.integers(33 + 2, 33 + 41, size=(B, L)).astype(np.uint8)
@@ -62,7 +84,19 @@ def _rand_batch(rng, B, L, plant=()):
                 if lens[i] > len(a) + 2:
                     p = int(rng.integers(0, lens[i] - len(a)))
                     bases[i, p:p + len(a)] = a
+        if lowq and i % 2 == 0:
+            n = int(rng.integers(30, max(31, lens[i] // 2)))
+            p = int(rng.integers(0, max(1, lens[i] - n)))
+            quals[i, p:p + n] = rng.integers(33 + 2, 33 + 9, size=n)[:L - p]
     return bases, quals, lens, mask
+
+
+def _region_rows(rows, cap):
+    """(active slots that carry a region number, mask spans) in rows."""
+    slot = rows[:, 5:5 + 6 * cap].reshape(len(rows), cap, 6)
+    active = (slot[..., 4] >> 10) & 1
+    return (int(((slot[..., 5] > 0) & (active == 1)).sum()),
+            int((slot[..., 3] > slot[..., 2]).sum()))
 
 
 @pytest.mark.parametrize("name,extra", CONFIGS, ids=[c[0] for c in CONFIGS])
@@ -71,6 +105,8 @@ def test_kernel_params_match_jax(name, extra):
     assert tdev.kernel_params(topt) == jdev.kernel_params(jopt)
     assert tdev.out_fields(topt) == jdev.out_fields(jopt)
     assert tdev.out_cap(topt) == jdev.out_cap(jopt)
+    if "-b" in extra and "-A" not in extra:
+        assert tdev.out_cap(topt) == 4
     assert tdev.adapter_stages(tdev.kernel_params(topt)) == \
         jdev.adapter_stages(jdev.kernel_params(jopt))
 
@@ -88,8 +124,10 @@ def test_step_matches_jax(name, extra, with_stats):
     jstate = jdev.init_stats_state(SL)
     tstate = tdev.zero_stats_state(SL, "cpu")
     rng = np.random.default_rng(sum(map(ord, name)))
+    regions = [0, 0]
     for L in (128, 1024):
-        batch = _rand_batch(rng, 24, L, plant=(START, END))
+        batch = _rand_batch(rng, 24, L, plant=(START, END),
+                            lowq=p["break_enabled"] or p["mask_enabled"])
         for packer in (jdev.pack_input_b5, jdev.pack_input):
             packed = packer(*batch)
             outbuf = jnp.zeros((1, 24, F), jnp.int32)
@@ -105,6 +143,16 @@ def test_step_matches_jax(name, extra, with_stats):
                 "%s L=%d %s: first diff %r" % (
                     name, L, packer.__name__,
                     np.argwhere(rows.numpy() != ref)[:5]))
+            regions = [a + b for a, b in zip(
+                regions, _region_rows(ref, jdev.out_cap(jopt)))]
+    # a configuration that found no region tests nothing (on the headline,
+    # break at Q22 keeps only the fragments before each read's first
+    # region, where the default mask window finds none; the next
+    # configuration masks inside such fragments)
+    if p["break_enabled"]:
+        assert regions[0] > 0
+    if p["mask_enabled"] and name != "headline_break_mask":
+        assert regions[1] > 0
     if not with_stats:
         return
     jflat = np.asarray(jstate).astype(np.int64)
