@@ -9,20 +9,22 @@ It builds the port's CUDA kernels from fastplong_tpu_torch/csrc, holds each
 kernel against its plain PyTorch version at the main path's shapes and a
 few others (exact match required: every result is an integer; the Myers
 verify also as the paired launch the main path makes; the statistics
-kernel in both forms at the headline batch shape and on an edge batch; the
-region scan in the break and mask forms and on an edge batch), checks the
+kernel, which adds into the run's accumulator, from a non-zero one over 1,
+2 and 4 slots at the headline batch shape and on edge batches; the region
+scan in the break and mask forms and on an edge batch), checks the
 fused step on CUDA against the port's CPU step with the headline and the
 break-and-mask parameters, then drives the headline CLI (-s START -e END
 -5 -3 -x, both reports, --failed_out) on CUDA three times over a 64-Mbase
 input made from a seed, checks each run's kernel launches against its step
 count, compares its four outputs byte for byte with the port's CPU run of
 the same input, and profiles one more CUDA run (no index_add_ may appear
-among its device ops).  Then, as functional checks over a 64-Mbase input
-with low-quality stretches planted, the headline flags with break and
-mask (-b -N: one CUDA run, its launches, "rN-" fragments and failed reads
-in its output, byte parity with the CPU run, and a profile) and with
-N-masking alone (-N: its launches, failed reads holding runs of N at
-least one window long, byte parity with the CPU run).  The fused step
+among its device ops; each profile prints device ops per step call).
+Then, as functional checks over a 64-Mbase input with low-quality
+stretches planted, the headline flags with break and mask (-b -N: one
+CUDA run, its launches, "rN-" fragments and failed reads in its output,
+byte parity with the CPU run, and a profile) and with N-masking alone
+(-N: its launches, failed reads holding runs of N at least one window
+long, byte parity with the CPU run, and a profile).  The fused step
 with -b -N and with -N must find regions too.
 
     python3 chip_smoke.py --walls
@@ -483,17 +485,65 @@ def _stat_edge_batch(rng, B, L):
     return bases, quals, lo, hi, mask
 
 
-def _stat_equal(got, ref):
-    """max_abs_err over every field of two stat_batch dicts (each must be
-    0)."""
-    return max(require_equal("stat_batch " + k, got[k], v)
-               for k, v in ref.items())
+def _stat_slots(rng, B, L, S, edge):
+    """(bases, quals, lo, hi, mask) with lo, hi, mask [S, B]: the edge
+    batch with each slot's spans drawn anew (slot 0 keeps the span cases),
+    or the headline shape: random reads, trimmed spans [lo, hi) on 95% of
+    them, and, for S = 2 and 4, the middle split (one read in ten cut in
+    two) and then break (one slot in five cut in two), as the step's slots
+    leave them."""
+    import numpy as np
+    if edge:
+        bases, quals, lo, hi, mask = _stat_edge_batch(rng, B, L)
+        spans = [(lo, hi, mask)] + [_stat_edge_batch(rng, B, L)[2:]
+                                    for _ in range(S - 1)]
+        lo, hi, mask = (np.stack(x) for x in zip(*spans))
+        return bases, quals, lo, hi, mask
+    bases = _rand_bases(rng, (B, L))
+    quals = rng.integers(33 + 2, 33 + 41, (B, L)).astype(np.uint8)
+    lo = rng.integers(0, 200, B).astype(np.int32)
+    hi = (lo + rng.integers(0, L - 200, B)).astype(np.int32)
+    lo, hi = lo[None], hi[None]
+    mask = (rng.random(B) < 0.95)[None]
+    while lo.shape[0] < S:
+        share = 0.1 if lo.shape[0] == 1 else 0.2
+        cut = rng.random(lo.shape) < share
+        mid = lo + ((hi - lo) * rng.random(lo.shape)).astype(np.int32)
+        lo = np.stack([lo, np.where(cut, mid, hi)], 1).reshape(-1, B)
+        hi = np.stack([np.where(cut, mid, hi), hi], 1).reshape(-1, B)
+        mask = np.stack([mask, mask & cut], 1).reshape(-1, B)
+    return bases, quals, lo, hi, mask
+
+
+def _stat_into_equal(name, args, zero_lo, SL, seed):
+    """stat_batch_into against stat_batch_into_plain from one non-zero
+    starting accumulator: the side vectors and the medians must be equal;
+    cycles at and past L must keep their starting values.  Returns
+    (max_abs_err, the kernel's side vector)."""
+    import torch
+    from fastplong_tpu_torch.ops.stats_kernels import (
+        flat_side_len, stat_batch_into, stat_batch_into_plain)
+    g = torch.Generator().manual_seed(seed)
+    start = torch.randint(-(1 << 40), 1 << 40, (flat_side_len(SL),),
+                          generator=g, dtype=torch.int64).to(args[0].device)
+    got, ref = start.clone(), start.clone()
+    err = max(require_equal(name + " median",
+                            stat_batch_into(got, *args, zero_lo=zero_lo),
+                            stat_batch_into_plain(ref, *args,
+                                                  zero_lo=zero_lo)),
+              require_equal(name + " accumulator", got, ref))
+    L = args[0].shape[1]
+    if L < SL:
+        require_equal(name + " cycles past L", got[18 * L:18 * SL],
+                      start[18 * L:18 * SL])
+    return err, got
 
 
 def _stat_work(L, lo, hi, mask, zero_lo):
-    """(bytes, operations) of one stat_batch call for its bound: the
+    """(bytes, operations) of one stat_batch_into call for its bound: the
     in-span bytes of bases and quals read once (what these spans need),
-    lo/hi/mask read once, the partial sums, medians and lengths written
+    lo/hi/mask read once, the accumulator's 18 L cycle values and its
+    1,168 other values read and written once (int64), the medians written
     once; about 10 word operations per in-span cycle."""
     import torch
     lo = lo.to(torch.int64)
@@ -501,55 +551,63 @@ def _stat_work(L, lo, hi, mask, zero_lo):
     n = hi if zero_lo else hi - lo
     n = torch.where(mask, torch.clamp(n, 0, L), 0)
     cycles = int(n.sum().item())
-    B = lo.shape[0]
-    return (2 * cycles + 9 * B + 4 * (34 * L + 128 + 1024) + 5 * B,
+    rows = lo.numel()
+    return (2 * cycles + 9 * rows + 16 * (18 * L + 1168) + rows,
             10 * cycles)
 
 
 def phase_stat_batch(rng, bases):
-    """The statistics kernel against its plain version, every field
-    exactly, in both forms the step calls (pre-filter with zero_lo,
-    post-filter over trimmed spans) at the headline batch shape and on an
-    edge batch; timed at the headline shape by CUDA graph and by events.
-    Returns the post-filter record (two of a step's three calls)."""
-    import numpy as np
+    """The statistics kernel (stat_batch_into) against its plain version,
+    exactly, from a non-zero starting accumulator: on the edge batch in the
+    pre-filter form and over 2 and 4 slots, with L below the accumulator's
+    cycle length (whose later cycles must stay as they were) and at an L
+    that takes the byte-load path, then at the headline batch shape in the
+    step's three forms (S = 1 pre-filter with zero_lo, S = 2 post-filter
+    after the middle split, S = 4 after break), each timed by CUDA graph
+    and by events.  Returns the S = 2 record (the headline's post-filter
+    launch)."""
     import torch
-    from fastplong_tpu_torch.ops.stats_kernels import (stat_batch,
-                                                       stat_batch_plain)
+    from fastplong_tpu_torch.ops.stats_kernels import (
+        flat_side_len, stat_batch_into, stat_batch_into_plain)
     dev = bases.device
-    edge = [torch.from_numpy(a).to(dev) for a in _stat_edge_batch(rng, 40,
-                                                                  300)]
-    for zero_lo in (True, False):
-        err = _stat_equal(stat_batch(*edge, zero_lo=zero_lo),
-                          stat_batch_plain(*edge, zero_lo=zero_lo))
+    for S, zero_lo, (B, L), SL in ((1, True, (40, 304), 1024),
+                                   (2, False, (40, 304), 1024),
+                                   (4, False, (40, 304), 304),
+                                   (2, False, (37, 301), 512),
+                                   (1, True, (37, 301), 512)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in _stat_slots(rng, B, L, S, edge=True)]
+        err, _ = _stat_into_equal("stat_batch", args, zero_lo, SL, S + L)
         log("phase 3: " + json.dumps(dict(
-            name="stat_batch", shape="edge batch [40, 300] %s" % (
-                "pre-filter" if zero_lo else "post-filter"),
+            name="stat_batch", shape="edge batch [%d, %d], S = %d, %s, "
+            "accumulator at SL = %d" % (B, L, S, "pre-filter (zero_lo)"
+                                        if zero_lo else "post-filter", SL),
             max_abs_err=err)))
     B, L = bases.shape
-    quals = torch.from_numpy(rng.integers(33 + 2, 33 + 41, (B, L))
-                             .astype(np.uint8)).to(dev)
-    lo = torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(dev)
-    hi = lo + torch.from_numpy(rng.integers(0, L - 200, B).astype(np.int32)
-                               ).to(dev)
-    mask = torch.from_numpy(rng.random(B) < 0.95).to(dev)
     rec = None
-    for form, lo_, zero_lo in (("pre-filter, zero_lo", torch.zeros_like(lo),
-                                True),
-                               ("post-filter, spans", lo, False)):
-        args = (bases, quals, lo_, hi, mask)
-        err = _stat_equal(stat_batch(*args, zero_lo=zero_lo),
-                          stat_batch_plain(*args, zero_lo=zero_lo))
-        ms = graph_ms(lambda: stat_batch(*args, zero_lo=zero_lo))
-        ev = cuda_ms(lambda: stat_batch(*args, zero_lo=zero_lo))
-        plain = cuda_ms(lambda: stat_batch_plain(*args, zero_lo=zero_lo),
-                        reps=3, inner=2)
-        bms, by = bound(*_stat_work(L, lo_, hi, mask, zero_lo),
-                        WORD32_OPS_PER_S)
-        rec = dict(name="stat_batch", shape="[%d, %d] %s" % (B, L, form),
-                   max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
-                   bound_ms=bms, bound_by=by, library_ms=None)
-        log("phase 3: " + json.dumps(rec))
+    for S, zero_lo, form in ((1, True, "S = 1 pre-filter (zero_lo)"),
+                             (2, False, "S = 2 post-filter (middle split)"),
+                             (4, False, "S = 4 post-filter (after break)")):
+        _, quals, lo, hi, mask = _stat_slots(rng, B, L, S, edge=False)
+        if zero_lo:
+            lo[:] = 0
+        args = [bases] + [torch.from_numpy(a).to(dev)
+                          for a in (quals, lo, hi, mask)]
+        err, _ = _stat_into_equal("stat_batch", args, zero_lo, L, S)
+        side = torch.zeros(flat_side_len(L), dtype=torch.int64, device=dev)
+        ms = graph_ms(lambda: stat_batch_into(side, *args, zero_lo=zero_lo))
+        ev = cuda_ms(lambda: stat_batch_into(side, *args, zero_lo=zero_lo))
+        plain = cuda_ms(lambda: stat_batch_into_plain(side, *args,
+                                                      zero_lo=zero_lo),
+                        reps=3, inner=1)
+        bms, by = bound(*_stat_work(L, *args[2:], zero_lo), WORD32_OPS_PER_S)
+        r = dict(name="stat_batch", shape="[%d, %d] %s" % (B, L, form),
+                 max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
+                 bound_ms=bms, bound_by=by, x_bound=ms / bms,
+                 library_ms=None)
+        log("phase 3: " + json.dumps(r))
+        if S == 2:
+            rec = r
     return rec
 
 
@@ -806,28 +864,36 @@ def check_report(out_fq, json_path, n_reads, n_bases, phase="5"):
 
 # kernel launches per step call on each path: one scan per distinct
 # adapter, one seed scan per trim side, three paired verifies (start trim,
-# end trim, middle), one statistics call before the filters and one for
-# each out-read slot after them (2 slots, 4 with break), and one region
-# launch for break and one for mask (all slots of a stage at once)
+# end trim, middle), one statistics launch per side of the accumulator
+# (pre-filter, and post-filter over all out-read slots at once), and one
+# region launch for break and one for mask (all slots of a stage at once)
 PER_STEP = {
     "headline": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
-                 "stat_batch": 3, "regions": 0},
+                 "stat_batch": 2, "regions": 0},
     "break_mask": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
-                   "stat_batch": 5, "regions": 2},
+                   "stat_batch": 2, "regions": 2},
     "mask": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
-             "stat_batch": 3, "regions": 1},
+             "stat_batch": 2, "regions": 1},
 }
+# device ops per step call in the profiled runs of the tree before the
+# statistics kernel added into the accumulator itself (commit 0110662,
+# PERF.md)
+OPS_PER_STEP_BEFORE = {"headline": 1040, "break_mask": 1380}
 
 
 def kernel_wrappers(names):
     """The wrappers whose `launches` count the kernels named (regions is
-    imported only when named, so that --walls runs in an older tree)."""
+    imported only when named, and the statistics kernel's wrapper is
+    stat_batch where stat_batch_into does not exist, so that --walls runs
+    in an older tree)."""
+    from fastplong_tpu_torch.ops import stats_kernels
     from fastplong_tpu_torch.ops.adapter import seed_scan
     from fastplong_tpu_torch.ops.mismatch import mismatch_scan
     from fastplong_tpu_torch.ops.myers import myers_verify
-    from fastplong_tpu_torch.ops.stats_kernels import stat_batch
+    stat = getattr(stats_kernels, "stat_batch_into", None)
     wrappers = {"mismatch_scan": mismatch_scan, "myers_verify": myers_verify,
-                "seed_scan": seed_scan, "stat_batch": stat_batch}
+                "seed_scan": seed_scan,
+                "stat_batch": stat or stats_kernels.stat_batch}
     if "regions" in names:
         from fastplong_tpu_torch.ops.regions import detect_regions_summary
         wrappers["regions"] = detect_regions_summary
@@ -894,7 +960,7 @@ def phase_cli(workdir, walls_only=False):
 
     if not walls_only:
         cpu_parity(workdir, in_fq, outs_g, nbases)
-    _, evs = profile_cli(workdir, in_fq)
+    _, evs = profile_cli(workdir, in_fq, path="headline")
     if not walls_only:
         no_index_add(evs)
     return launches, torch.cuda.get_device_name(0)
@@ -952,7 +1018,8 @@ def phase_break_mask(workdir):
         raise AssertionError("the break-and-mask run wrote no fragment or "
                              "no failed read")
     cpu_parity(workdir, in_fq, outs_g, nbases, flags=flags, phase="5b")
-    _, evs = profile_cli(workdir, in_fq, flags=flags, phase="5b")
+    _, evs = profile_cli(workdir, in_fq, flags=flags, phase="5b",
+                         path="break_mask")
     no_index_add(evs)
     return launches, in_fq, nbases
 
@@ -987,6 +1054,7 @@ def phase_mask(workdir, in_fq, nbases):
         raise AssertionError("the -N run wrote no read masked over a whole "
                              "window")
     cpu_parity(workdir, in_fq, outs_g, nbases, flags=flags, phase="5c")
+    profile_cli(workdir, in_fq, flags=flags, phase="5c", path="mask")
 
 
 def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5"):
@@ -1007,24 +1075,38 @@ def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5"):
     check_report(outs_g[0], outs_g[2], 8000, nbases, phase)
 
 
-def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5"):
-    """One profiled CUDA run: its wall, device time, op count and top
-    device ops; returns (wall, device events)."""
+def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None):
+    """One profiled CUDA run: its wall, device time, op count (in all and
+    per step call, beside the count before this tree where there is one)
+    and top device ops; returns (wall, device events)."""
     from torch.profiler import ProfilerActivity, profile
+    dump = os.path.join(workdir, "timer_prof.json")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pwall, _ = run_cli(workdir, in_fq, "prof", "cuda", flags=flags)
+        pwall, _ = run_cli(workdir, in_fq, "prof", "cuda", timer_dump=dump,
+                           flags=flags)
+    with open(dump) as f:
+        steps = json.load(f)["step_calls"]
     evs = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) is not None
            and str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.self_device_time_total for e in evs)
+    nops = sum(e.count for e in evs)
+    before = OPS_PER_STEP_BEFORE.get(path)
     log("phase %s: profiled run wall %.3f s; device busy %.3f ms in %d "
-        "device ops = %.1f%% of that wall"
-        % (phase, pwall, busy_us / 1e3, sum(e.count for e in evs),
-           100.0 * busy_us / 1e6 / pwall))
+        "device ops = %.1f%% of that wall; %d step calls, %.1f device ops "
+        "per step call%s"
+        % (phase, pwall, busy_us / 1e3, nops, 100.0 * busy_us / 1e6 / pwall,
+           steps, nops / max(steps, 1),
+           " (0110662: about %d)" % before if before else ""))
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
         log("phase %s:   %9.3f ms %6d x %s" % (
             phase, e.self_device_time_total / 1e3, e.count, e.key[:100]))
+    for e in evs:
+        if "stat_batch_kernel" in e.key or "regions_kernel" in e.key:
+            log("phase %s:   in the run: %.5f ms per launch of %s (%d "
+                "launches)" % (phase, e.self_device_time_total / 1e3
+                               / max(e.count, 1), e.key[:60], e.count))
     return pwall, evs
 
 

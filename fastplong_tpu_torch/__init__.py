@@ -1,8 +1,10 @@
 """fastplong_tpu_torch: the PyTorch/CUDA port of fastplong_tpu.
 
-The headline trim-and-filter path runs on an NVIDIA GPU through three
-hand-written CUDA kernels (csrc/); the host layer (FASTQ I/O, batching,
-reports) is the same as the JAX package's.  Public entry points:
+The headline trim-and-filter path, with break and N-mask (-b, -N), runs
+on an NVIDIA GPU through five hand-written CUDA kernels (csrc/: the
+adapter mismatch scan, the Myers verify, the seed scan, the statistics
+reduction and the low-quality region scan); the host layer (FASTQ I/O,
+batching, reports) is the same as the JAX package's.  Public entry points:
 
     from fastplong_tpu_torch.main import main          # CLI
     from fastplong_tpu_torch.config import Options     # programmatic config

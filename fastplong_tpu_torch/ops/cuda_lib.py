@@ -35,7 +35,8 @@ _SIGNATURES = {
     "fpl_myers_verify": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
     "fpl_myers_verify_pair": [_P, _I, _I, _P, _P, _P, _I, _P] * 2 + [_P],
     "fpl_seed_scan": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "fpl_stat_batch": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "fpl_stat_batch_into": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P,
+                            _P],
     "fpl_regions": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
 }
 

@@ -16,10 +16,12 @@ Consecutive regions are adjacent, so a span's regions are summarised as
 after last_end, and count feeds the tail's "rN-" name tag.
 
 detect_regions_summary launches the hand-written CUDA kernel
-(csrc/regions.cu: one warp per span, each search step a ballot over 128
-positions) for CUDA tensors; detect_regions_summary_plain is its plain
-PyTorch version, which CPU tensors take: the JAX package's loop, one pass
-per region, with the host checking `done.all()` between passes.
+(csrc/regions.cu: one block of eight warps per span, each search step
+1,024 positions tested by warp ballots and the block's first hit taken
+through shared memory; spans with no room for a window leave at once) for
+CUDA tensors; detect_regions_summary_plain is its plain PyTorch version,
+which CPU tensors take: the JAX package's loop, one pass per region, with
+the host checking `done.all()` between passes.
 """
 
 import torch

@@ -5,12 +5,16 @@ src/stats.cpp:265-375): per-cycle Q20/Q30/content/quality accumulators
 indexed by (base & 0x07), the base-quality histogram, rolling 5-mer counts
 and the per-read median quality, reduced over a batch of spans [lo, hi).
 
-stat_batch launches the hand-written CUDA kernel (csrc/stat_batch.cu: one
-launch, shared-memory histograms, a per-read 256-bin count for the median,
-per-cycle counters in registers) for CUDA tensors; stat_batch_plain is its
-plain PyTorch version, which CPU tensors take: index_add_ scatters into one
-spare bin that absorbs masked positions, and a row sort for the median, as
-jnp.sort is in the JAX package.
+stat_batch (= stat_batch_plain) returns one batch's partial sums as a dict,
+in plain PyTorch on any device; the JAX-parity tests and the host layer use
+it.  The step uses stat_batch_into: the partials of every slot of an
+[S, B] span stack added straight into one side of the run's int64
+accumulator (the flat layout below), returning the per-read medians.  For
+CUDA tensors it launches the hand-written kernel csrc/stat_batch.cu (one
+launch per side: row blocks count each read's qualities and 5-mers from
+16-byte loads, column blocks sum the per-cycle counters, both add into the
+accumulator with integer atomics); CPU tensors take stat_batch_into_plain,
+stat_batch_plain plus add_partial for each slot.
 """
 
 import torch
@@ -18,6 +22,29 @@ import torch
 from . import cuda_lib
 from .align import align_spans
 from .primitives import arange
+
+# One side of the run's statistics accumulator, a flat int64 vector at the
+# cycle length SL:
+#   [0, 18*SL)    cycle block [SL, 18] = per cycle:
+#                   [0:8]  content per base bucket
+#                   [8:16] quality sum per base bucket
+#                   [16]   total bases   [17] total quality
+#   [18*SL, +8)   q20 totals per base bucket
+#   [+8, +16)     q30 totals per base bucket
+#   [+16, +144)   base quality histogram [128]
+#   [+144, +1168) kmer [1024]
+# (the layout of fastplong_tpu's [2, F] state).
+FLAT_PER_L = 18
+FLAT_EXTRA = 8 + 8 + 128 + 1024
+
+
+def flat_side_len(L):
+    return FLAT_PER_L * L + FLAT_EXTRA
+
+
+def side_stat_len(side):
+    """The cycle length SL of a flat side vector."""
+    return (side.shape[-1] - FLAT_EXTRA) // FLAT_PER_L
 
 Q20_CHAR = ord("5")
 Q30_CHAR = ord("?")
@@ -109,55 +136,90 @@ def stat_batch_plain(bases, quals, lo, hi, read_mask, zero_lo=False):
     }
 
 
-# the kernel's int32 partial: these four [8, L] blocks, then the total
-# bases and quality [L], the quality histogram [128] and the 5-mer counts
-# [1024] (csrc/stat_batch.cu)
-_CYCLE_FIELDS = ("cycle_q20", "cycle_q30", "cycle_content", "cycle_qual")
+stat_batch = stat_batch_plain
 
 
-def stat_batch(bases, quals, lo, hi, read_mask, zero_lo=False):
-    """Returns a dict of per-batch partial statistics.
+def add_partial(side, partial, SL):
+    """Add one stat_batch partial into a flat side vector, in place."""
+    L = partial["cycle_total_base"].shape[0]
+    cyc = side[:FLAT_PER_L * L].view(L, FLAT_PER_L)
+    cyc[:, 0:8] += partial["cycle_content"].T
+    cyc[:, 8:16] += partial["cycle_qual"].T
+    cyc[:, 16] += partial["cycle_total_base"]
+    cyc[:, 17] += partial["cycle_total_qual"]
+    o = FLAT_PER_L * SL
+    side[o:o + 8] += partial["cycle_q20"].sum(dim=1)
+    side[o + 8:o + 16] += partial["cycle_q30"].sum(dim=1)
+    side[o + 16:o + 144] += partial["base_qual_hist"]
+    side[o + 144:o + 1168] += partial["kmer"]
 
-    read_mask [B] bool excludes padding rows / filtered-out reads.
-    zero_lo=True (pre-stats on untrimmed reads) skips span alignment.
+
+def _check_into(side, bases, quals, lo, hi, read_mask):
+    """Raise on inputs that stat_batch_into does not take; returns SL."""
+    if bases.dim() != 2:
+        raise ValueError("stat_batch_into: bases must be [B, L]")
+    B, L = bases.shape
+    SL = side_stat_len(side)
+    if (bases.dtype != torch.uint8 or quals.dtype != torch.uint8
+            or quals.shape != (B, L) or side.dtype != torch.int64
+            or side.dim() != 1 or side.shape[0] != flat_side_len(SL)
+            or L == 0 or L > SL or lo.dim() != 2 or lo.shape[1] != B
+            or hi.shape != lo.shape or read_mask.shape != lo.shape
+            or read_mask.dtype != torch.bool):
+        raise ValueError("stat_batch_into: unsupported inputs")
+    return SL
+
+
+def stat_batch_into_plain(side, bases, quals, lo, hi, read_mask,
+                          zero_lo=False):
+    """Plain PyTorch version of stat_batch_into."""
+    SL = _check_into(side, bases, quals, lo, hi, read_mask)
+    medians = []
+    for k in range(lo.shape[0]):
+        part = stat_batch_plain(bases, quals, lo[k], hi[k], read_mask[k],
+                                zero_lo)
+        add_partial(side, part, SL)
+        medians.append(part["median"])
+    if not medians:
+        return torch.empty((0, bases.shape[0]), dtype=torch.uint8,
+                           device=bases.device)
+    return torch.stack(medians)
+
+
+def stat_batch_into(side, bases, quals, lo, hi, read_mask, zero_lo=False):
+    """Add the statistics of every slot's spans into `side`, in place, and
+    return the per-read medians [S, B] uint8.
+
+    side: one [F] int64 row of the run's [2, F] accumulator at cycle length
+    SL (the flat layout above), with the batch's L <= SL; cycles L..SL-1
+    are left as they are.  bases, quals: [B, L] uint8.  lo, hi, read_mask:
+    [S, B] (S slots of the same reads); slot row i reads row i mod B of
+    bases and quals.  zero_lo=True (pre-stats on untrimmed reads) takes
+    each span from cycle 0.  The sum added is that of stat_batch over each
+    slot, bit for bit (every add is an integer add).
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     if bases.device.type == "cpu":
-        return stat_batch_plain(bases, quals, lo, hi, read_mask, zero_lo)
-    B, L = bases.shape
-    if (bases.dtype != torch.uint8 or quals.dtype != torch.uint8
-            or L == 0 or quals.shape != (B, L)
-            or read_mask.dtype != torch.bool
-            or lo.shape != (B,) or hi.shape != (B,)
-            or read_mask.shape != (B,)):
-        raise ValueError("stat_batch: unsupported inputs")
+        return stat_batch_into_plain(side, bases, quals, lo, hi, read_mask,
+                                     zero_lo)
+    _check_into(side, bases, quals, lo, hi, read_mask)
+    S, B = lo.shape
+    L = bases.shape[1]
     lo = lo.to(torch.int32).contiguous()
     hi = hi.to(torch.int32).contiguous()
     read_mask = read_mask.contiguous()
-    cuda_lib.require_cuda("stat_batch", bases, quals, lo, hi, read_mask)
-    dev = bases.device
-    flat = torch.zeros(34 * L + 128 + 1024, dtype=torch.int32, device=dev)
-    median = torch.empty(B, dtype=torch.uint8, device=dev)
-    rlen = torch.empty(B, dtype=torch.int32, device=dev)
-    if B > 0:
-        rc = cuda_lib.lib().fpl_stat_batch(
-            cuda_lib.ptr(bases), cuda_lib.ptr(quals), B, L, cuda_lib.ptr(lo),
-            cuda_lib.ptr(hi), cuda_lib.ptr(read_mask), int(bool(zero_lo)),
-            cuda_lib.ptr(flat), cuda_lib.ptr(median), cuda_lib.ptr(rlen),
-            cuda_lib.stream(bases))
-        cuda_lib.check(rc, "stat_batch")
-        stat_batch.launches += 1
-    out = {k: flat[i * 8 * L:(i + 1) * 8 * L].view(8, L)
-           for i, k in enumerate(_CYCLE_FIELDS)}
-    o = 32 * L
-    out["cycle_total_base"] = flat[o:o + L]
-    out["cycle_total_qual"] = flat[o + L:o + 2 * L]
-    out["base_qual_hist"] = flat[o + 2 * L:o + 2 * L + 128]
-    out["kmer"] = flat[o + 2 * L + 128:]
-    out["median"] = median
-    out["rlen"] = rlen
-    out["read_mask"] = read_mask
-    return out
+    cuda_lib.require_cuda("stat_batch_into", side, bases, quals, lo, hi,
+                          read_mask)
+    median = torch.empty((S, B), dtype=torch.uint8, device=bases.device)
+    if S * B > 0:
+        rc = cuda_lib.lib().fpl_stat_batch_into(
+            cuda_lib.ptr(bases), cuda_lib.ptr(quals), S, B, L,
+            cuda_lib.ptr(lo), cuda_lib.ptr(hi), cuda_lib.ptr(read_mask),
+            int(bool(zero_lo)), cuda_lib.ptr(side), side_stat_len(side),
+            cuda_lib.ptr(median), cuda_lib.stream(bases))
+        cuda_lib.check(rc, "stat_batch_into")
+        stat_batch_into.launches += 1
+    return median
 
 
-stat_batch.launches = 0
+stat_batch_into.launches = 0

@@ -12,10 +12,10 @@ The step is built from the plain parameter dict that kernel_params(opt)
 returns, so the JAX package's dict drives it unchanged.
 
 Each batch produces one packed int32 row per read (layout in
-make_fast_fn) and adds its statistic partials into one device-resident
-[2, F] accumulator (row 0 pre, row 1 post).  The accumulator is int64 and
-updated in place, so it is drained once, at the end of the run, without
-any risk of overflow.
+build_fast_step) and adds its statistic partials into one device-resident
+[2, F] accumulator (row 0 pre, row 1 post), one stat_batch_into call per
+side.  The accumulator is int64 and updated in place, so it is drained
+once, at the end of the run, without any risk of overflow.
 """
 
 from collections import namedtuple
@@ -33,7 +33,8 @@ from ..ops.polyx import trim_polyx
 from ..ops.primitives import arange, qual_cumsum
 from ..ops.qualcut import trim_and_cut
 from ..ops.regions import detect_regions_summary
-from ..ops.stats_kernels import stat_batch
+from ..ops.stats_kernels import (FLAT_PER_L, flat_side_len, side_stat_len,
+                                 stat_batch_into)
 
 TAG_NONE = 0
 TAG_SPLIT_LEFT = 1
@@ -168,9 +169,12 @@ def build_step(p, device=None, with_stats=True):
     """Returns (step fn, adapter stage list) for parameter dict p.
 
     device follows resolve_device: CUDA unless the CPU is asked for.
-    step(bases, quals, lens, read_mask) -> dict of per-read results;
-    with_stats=False omits the statistics reductions ("pre"/"posts" are
-    None and medians are not available)."""
+    step(bases, quals, lens, read_mask, state) -> dict of per-read results;
+    with with_stats=True the step adds the batch's pre-filter statistics
+    into state[0] and its post-filter statistics into state[1] ([2, F]
+    int64, in place) and returns the medians ("pre_median" [B],
+    "post_median" [S, B]); with_stats=False omits the statistics (state is
+    not read, the medians are None)."""
     device = resolve_device(device)
     stages = adapter_stages(p)
     specs = [AdapterSpec(seq, p["ed_max"], device) for seq, _ in stages]
@@ -179,12 +183,15 @@ def build_step(p, device=None, with_stats=True):
         middle_specs = (AdapterSpec(p["start_seq"], p["ed_max"], device),
                         AdapterSpec(p["end_seq"], p["ed_max"], device))
 
-    def step(bases, quals, lens, read_mask):
+    def step(bases, quals, lens, read_mask, state=None):
         B = lens.shape[0]
         i32 = dict(dtype=torch.int32, device=bases.device)
         lens = torch.where(read_mask, lens, 0)
-        pre = stat_batch(bases, quals, torch.zeros_like(lens), lens,
-                         read_mask, zero_lo=True) if with_stats else None
+        pre_median = None
+        if with_stats:
+            pre_median = stat_batch_into(
+                state[0], bases, quals, torch.zeros_like(lens)[None],
+                lens[None], read_mask[None], zero_lo=True)[0]
 
         lo, hi, null = trim_and_cut(
             bases, quals, lens, p["trim_front"], p["trim_tail"], **p["cut"])
@@ -274,17 +281,15 @@ def build_step(p, device=None, with_stats=True):
             bases_eff, mask_lo, mask_hi = mask_slots(
                 bases, slots, cq, p["mask_window"], p["mask_quality"])
 
-        # ---- filters + post-stats per out-read slot
-        codes, passed, posts = [], [], []
-        for c in range(slots.lo.shape[0]):
-            s_lo, s_hi = slots.lo[c], slots.hi[c]
-            code_c = pass_filter(bases_eff, quals, s_lo, s_hi, lens,
-                                 **p["filt"])
-            pass_c = (code_c == PASS_FILTER) & slots.active[c]
-            codes.append(code_c)
-            passed.append(pass_c)
-            posts.append(stat_batch(bases_eff, quals, s_lo, s_hi, pass_c)
-                         if with_stats else None)
+        # ---- filters per out-read slot, then the post-stats of all slots
+        codes = [pass_filter(bases_eff, quals, slots.lo[c], slots.hi[c],
+                             lens, **p["filt"])
+                 for c in range(slots.lo.shape[0])]
+        passed = (torch.stack(codes) == PASS_FILTER) & slots.active
+        post_median = None
+        if with_stats:
+            post_median = stat_batch_into(state[1], bases_eff, quals,
+                                          slots.lo, slots.hi, passed)
 
         active = slots.active.T
         return {
@@ -296,36 +301,22 @@ def build_step(p, device=None, with_stats=True):
             "active": active,
             "n_out": active.sum(dim=1, dtype=torch.int32),
             "code": torch.stack(codes, dim=1),
-            "passed": torch.stack(passed, dim=1),
+            "passed": passed.T,
             "poly": poly, "poly_trim": poly_trim,
             "adapter_trimmed": trimmed_total,
             "adapter_recs": (torch.stack(recs, dim=1) if recs
                              else torch.zeros((B, 0), **i32)),
-            "pre": pre, "posts": posts,
+            "pre_median": pre_median, "post_median": post_median,
         }
 
     return step, stages
 
 
 # --------------------------------------------------------------------------
-# Statistics accumulator: per side one flat vector
-#   [0, 18*SL)    cycle block [SL, 18] = per cycle:
-#                   [0:8]  content per base bucket
-#                   [8:16] quality sum per base bucket
-#                   [16]   total bases   [17] total quality
-#   [18*SL, +8)   q20 totals per base bucket
-#   [+8, +16)     q30 totals per base bucket
-#   [+16, +144)   base quality histogram [128]
-#   [+144, +1168) kmer [1024]
-# at SL = global_stat_len(): the layout of fastplong_tpu's [2, F] state.
+# Statistics accumulator: one flat int64 vector per side, in the layout of
+# ops/stats_kernels.py (fastplong_tpu's [2, F] state), at
+# SL = global_stat_len().
 # --------------------------------------------------------------------------
-
-_FLAT_EXTRA = 8 + 8 + 128 + 1024
-_FLAT_PER_L = 18
-
-
-def flat_side_len(L):
-    return _FLAT_PER_L * L + _FLAT_EXTRA
 
 
 def global_stat_len():
@@ -342,21 +333,6 @@ def zero_stats_state(L, device):
     """Zeroed [2, F] int64 accumulator (row 0 = pre, row 1 = post)."""
     return torch.zeros((2, flat_side_len(L)), dtype=torch.int64,
                        device=device)
-
-
-def _add_partial(side, partial, SL):
-    """Add one stat_batch partial into a flat side vector, in place."""
-    L = partial["cycle_total_base"].shape[0]
-    cyc = side[:_FLAT_PER_L * L].view(L, _FLAT_PER_L)
-    cyc[:, 0:8] += partial["cycle_content"].T
-    cyc[:, 8:16] += partial["cycle_qual"].T
-    cyc[:, 16] += partial["cycle_total_base"]
-    cyc[:, 17] += partial["cycle_total_qual"]
-    o = _FLAT_PER_L * SL
-    side[o:o + 8] += partial["cycle_q20"].sum(dim=1)
-    side[o + 8:o + 16] += partial["cycle_q30"].sum(dim=1)
-    side[o + 16:o + 144] += partial["base_qual_hist"]
-    side[o + 144:o + 1168] += partial["kmer"]
 
 
 def unflatten_side(flat, L):
@@ -384,7 +360,7 @@ def stats_state_to_numpy(state, max_seen=None):
     the power of two covering the longest statted read (cycles beyond it
     are zero) — the cut fastplong_tpu's DeviceStats.trimmed_state makes.
     Returns (array, cycle length)."""
-    SL = (state.shape[-1] - _FLAT_EXTRA) // _FLAT_PER_L
+    SL = side_stat_len(state)
     m = SL
     if max_seen is not None:
         m = max(1, min(SL, int(max_seen)))
@@ -394,8 +370,8 @@ def stats_state_to_numpy(state, max_seen=None):
         m = min(q, SL)
     st = state
     if m < SL:
-        st = torch.cat([state[:, :_FLAT_PER_L * m],
-                        state[:, _FLAT_PER_L * SL:]], dim=1)
+        st = torch.cat([state[:, :FLAT_PER_L * m],
+                        state[:, FLAT_PER_L * SL:]], dim=1)
     return st.cpu().numpy().astype(np.int64), m
 
 
@@ -459,17 +435,16 @@ def build_fast_step(p, device=None, with_stats=True):
     step, stages = build_step(p, device, with_stats)
     cap = params_cap(p)
     lut = torch.from_numpy(_B5_BASE_LUT.copy()).to(device)
-    SL = global_stat_len()
 
-    def core(packed_in, L):
+    def core(packed_in, L, state=None):
         bases, quals, lens, read_mask = unpack_on_device(packed_in, L, lut)
-        out = step(bases, quals, lens, read_mask)
+        out = step(bases, quals, lens, read_mask, state)
         zero = torch.zeros_like(out["lo"])
 
         def i32(x):
             return x.to(torch.int32)
 
-        pre_median = i32(out["pre"]["median"]) if with_stats else zero
+        pre_median = i32(out["pre_median"]) if with_stats else zero
         flags = (i32(out["null"]) | (out["n_out"] << 1)
                  | ((out["poly"] + 1) << 4) | (pre_median << 8))
         # adapter_trimmed can be negative (the reference's partial-path
@@ -478,7 +453,7 @@ def build_fast_step(p, device=None, with_stats=True):
         cols = [out["lo"], out["hi"], flags, out["poly_trim"],
                 torch.clamp(out["adapter_trimmed"], min=0)]
         for c in range(cap):
-            post_median = (i32(out["posts"][c]["median"]) if with_stats
+            post_median = (i32(out["post_median"][c]) if with_stats
                            else zero)
             misc = (out["code"][:, c]
                     | (i32(out["out_tag"][:, c]) << 6)
@@ -490,18 +465,12 @@ def build_fast_step(p, device=None, with_stats=True):
                      out["mask_lo"][:, c], out["mask_hi"][:, c], misc,
                      out["region_no"][:, c]]
         cols += list(out["adapter_recs"].unbind(1))
-        return out, torch.stack([i32(c) for c in cols], dim=1)
+        return torch.stack([i32(c) for c in cols], dim=1)
 
     if not with_stats:
-        def fast_nostats(packed_in, L):
-            return core(packed_in, L)[1]
-        return fast_nostats, stages
+        return core, stages
 
     def fast(state, packed_in, L):
-        out, rows = core(packed_in, L)
-        _add_partial(state[0], out["pre"], SL)
-        for post in out["posts"]:
-            _add_partial(state[1], post, SL)
-        return rows
+        return core(packed_in, L, state)
 
     return fast, stages

@@ -169,24 +169,27 @@ def test_seed_scan_on_card(card, seq):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("zero_lo", [True, False], ids=["pre", "post"])
+@pytest.mark.parametrize("form", [(1, True), (2, False), (4, False)],
+                         ids=["pre", "post", "post_S4"])
 @pytest.mark.parametrize("shape", [(40, 300), (1100, 64), (300, 1000),
                                    (3, 8192), (1100, 8192)])
-def test_stat_batch_on_card(card, shape, zero_lo):
-    """The statistics kernel against its plain version, field by field and
-    exactly, on chip_smoke.py's edge batch; B = 1100 gives row blocks more than one
-    read, and at L = 8192 column blocks chunks of 65 reads."""
-    from chip_smoke import _stat_edge_batch
-    rng = np.random.default_rng(shape[0] + shape[1])
+def test_stat_batch_on_card(card, shape, form):
+    """The statistics kernel (stat_batch_into) against its plain version,
+    accumulator and medians exactly, from a non-zero starting accumulator
+    of twice the batch's cycle length (whose later cycles must stay as they
+    were), on chip_smoke.py's edge batch with each slot's spans drawn anew;
+    L = 300 and 1000 take the byte-load path, B = 1100 gives row blocks
+    more than one read, and at L = 8192 column blocks take chunks of rows."""
+    from chip_smoke import _stat_into_equal, _stat_slots
+    S, zero_lo = form
+    rng = np.random.default_rng(shape[0] + shape[1] + S)
     arrs = [torch.from_numpy(a).to(card)
-            for a in _stat_edge_batch(rng, *shape)]
-    before = tstats.stat_batch.launches
-    got = tstats.stat_batch(*arrs, zero_lo=zero_lo)
-    torch.cuda.synchronize()
-    assert tstats.stat_batch.launches == before + 1
-    ref = tstats.stat_batch_plain(*arrs, zero_lo=zero_lo)
-    for k, v in ref.items():
-        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+            for a in _stat_slots(rng, *shape, S, edge=True)]
+    before = tstats.stat_batch_into.launches
+    err, _ = _stat_into_equal("stat_batch", arrs, zero_lo, 2 * shape[1],
+                              shape[0])
+    assert err == 0
+    assert tstats.stat_batch_into.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -237,3 +240,35 @@ def test_regions_stacked_on_card(card, shape):
         ref = tregions.detect_regions_summary_plain(*args)
         for g, r in zip(got, ref):
             assert torch.equal(g, r), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 5, 50, 100])
+def test_regions_block_steps_on_card(card, w):
+    """Regions that start and end on either side of the block's search
+    steps (multiples of 1,024 positions from the span's start, and of a
+    warp's 128), in spans with a non-zero lo, against the plain version."""
+    B, L = 64, 6000
+    rng = np.random.default_rng(w)
+    quals = rng.integers(33 + 25, 33 + 41, (B, L)).astype(np.uint8)
+    lo = rng.integers(0, 40, B).astype(np.int32)
+    for i in range(B):
+        for edge in (1024 * (1 + i % 4), 128 * (1 + i % 7)):
+            p = int(lo[i]) + edge + int(rng.integers(-w - 3, w + 3))
+            k = int(rng.integers(w + 1, 3 * w + 40))
+            quals[i, max(p, 0):p + k] = 33 + 3
+    lens = np.full(B, L, np.int32)
+    hi = np.where(np.arange(B) % 3 == 0, L,
+                  L - rng.integers(0, 500, B)).astype(np.int32)
+    from fastplong_tpu_torch.ops.primitives import qual_cumsum
+    cq = qual_cumsum(torch.from_numpy(quals).to(card),
+                     torch.from_numpy(lens).to(card))
+    lo_t, hi_t = (torch.from_numpy(a).to(card) for a in (lo, hi))
+    for q in (10, 20):
+        args = (cq, lo_t, hi_t, w, (33 + q) * w)
+        got = tregions.detect_regions_summary(*args)
+        torch.cuda.synchronize()
+        ref = tregions.detect_regions_summary_plain(*args)
+        assert int(ref[2].sum()) > 0
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), q

@@ -261,14 +261,16 @@ def test_stat_batch_edges_match_jax(case, pre):
 
 
 def test_stat_batch_refuses_other_devices():
-    """A tensor that is neither on the CPU nor on a card gets an error,
-    never the plain version."""
+    """A tensor that is neither on the CPU nor on a card gets an error from
+    the statistics kernel's wrapper, never the plain version."""
     def meta(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
     with pytest.raises(ValueError):
-        ts.stat_batch(meta((2, 64), torch.uint8), meta((2, 64), torch.uint8),
-                      meta(2, torch.int32), meta(2, torch.int32),
-                      meta(2, torch.bool))
+        ts.stat_batch_into(meta(ts.flat_side_len(64), torch.int64),
+                           meta((2, 64), torch.uint8),
+                           meta((2, 64), torch.uint8),
+                           meta((1, 2), torch.int32), meta((1, 2), torch.int32),
+                           meta((1, 2), torch.bool))
 
 
 def _specs(seq):
