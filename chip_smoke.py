@@ -11,7 +11,10 @@ few others (exact match required: every result is an integer; the Myers
 verify also as the paired launch the main path makes; the statistics
 kernel, which adds into the run's accumulator, from a non-zero one over 1,
 2 and 4 slots at the headline batch shape and on edge batches; the region
-scan in the break and mask forms and on an edge batch), checks the
+scan in the break and mask forms and on an edge batch; the k-mer fill of
+adapter auto-detection on both sides of the headline input's sample and on
+an edge batch; the block-scan Myers kernel at 700, 2,000 and 5,000 bp;
+the mismatch scan's int32 path at 700 and 2,000 bp), checks the
 fused step on CUDA against the port's CPU step with the headline and the
 break-and-mask parameters, then drives the headline CLI (-s START -e END
 -5 -3 -x, both reports, --failed_out) on CUDA three times over a 64-Mbase
@@ -25,7 +28,13 @@ CUDA run, its launches, "rN-" fragments and failed reads in its output,
 byte parity with the CPU run, and a profile) and with N-masking alone
 (-N: its launches, failed reads holding runs of N at least one window
 long, byte parity with the CPU run, and a profile).  The fused step
-with -b -N and with -N must find regions too.
+with -b -N and with -N must find regions too.  Then BASELINE config 4
+(no adapter flags: both adapters auto-detected, one k-mer fill launch a
+side; outputs and "Detected:" lines equal to the CPU run's) and config 5
+(-b -y --split 4: the four split files, JSON and HTML equal to the CPU
+run's) over the headline input, and a 700-bp start adapter over a few
+hundred reads (each side's middle verify through the block-scan kernel;
+byte parity with the CPU run), each with its launch counts checked.
 
     python3 chip_smoke.py --walls
 
@@ -58,6 +67,21 @@ END = "AGCAATACGTAACTGAACGAAGT"
 TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 HEADLINE = ["-s", START, "-e", END, "-5", "-3", "-x"]
 SEED = 7
+N_READS = 8000     # reads of the headline input (bench.py gen_input)
+# BASELINE configs 4 and 5 (tools/cpu_anchor.py:42-43): auto-detection with
+# no adapter flags, and break, low-complexity filter and split by file number
+CONFIG4 = []
+CONFIG5 = ["-b", "-y", "--split", "4"]
+
+
+def _long_seq(n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return "".join(rng.choice(list("ACGT"), n))
+
+
+# a start adapter longer than the Myers verify's 640 bp (phase 5f)
+LONG_ADAPTER = _long_seq(700, 17)
 
 # bound model: the H100 SXM's published peak rates.
 # Each kernel's operations are counted at the peak for their type: the
@@ -179,8 +203,9 @@ def _rand_bases(rng, shape):
                       p=[.24, .24, .24, .24, .04])
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the main path's shapes;
+def phase_kernels(in_fq):
+    """Each kernel against its plain version at the main path's shapes
+    (the k-mer fill on the sample of in_fq, the headline input);
     returns {name: record} for the JSON line (the main-path shape) and
     prints the other shapes."""
     import numpy as np
@@ -201,7 +226,9 @@ def phase_kernels():
     bases = torch.from_numpy(_rand_bases(rng, (1024, 8192))).to(dev)
     for label, seq, rows in (("28 bp", START, 1024), ("23 bp", END, 1024),
                              ("33 bp", TRUSEQ, 1024),
-                             ("300 bp", (START * 11)[:300], 256)):
+                             ("300 bp", (START * 11)[:300], 256),
+                             ("700 bp", LONG_ADAPTER, 256),
+                             ("2,000 bp", _long_seq(2000, 3), 256)):
         x = bases[:rows].contiguous()
         ad = torch.from_numpy(np.frombuffer(seq.encode(), np.uint8)
                               .copy()).to(dev)
@@ -214,7 +241,8 @@ def phase_kernels():
         plain = cuda_ms(lambda: mismatch_scan_plain(x, ad), reps=3, inner=2)
         bms, by = bound(B * L + B * L * got.element_size() + alen,
                         2 * B * L * alen, INT8_OPS_PER_S)
-        lib = _conv_mismatch(x, ad, got)
+        # the fp16 one-hot convolution counts exactly up to 2,048
+        lib = _conv_mismatch(x, ad, got) if alen <= 300 else None
         r = dict(name="mismatch_scan", shape="[%d, %d] x %s" % (B, L, label),
                  max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
                  bound_ms=bms, bound_by=by, library_ms=lib)
@@ -308,6 +336,161 @@ def phase_kernels():
 
     rec["stat_batch"] = phase_stat_batch(rng, bases)
     rec["regions"] = phase_regions(rng)
+    rec["kmer_hist"] = phase_kmer(rng, in_fq)
+    rec["myers_blockscan"] = phase_blockscan(rng)
+    return rec
+
+
+def _fastq_seqs(path):
+    seqs = []
+    with open(path, "rb") as f:
+        for i, line in enumerate(f):
+            if i % 4 == 1:
+                seqs.append(line.rstrip(b"\n"))
+    return seqs
+
+
+def _kmer_edge_batch(rng, n=600):
+    """(mat, npos, pbase): bytes outside ACGTU, rows with no window (npos
+    0, as for reads shorter than a window) and with every window (129),
+    an adapter in half the rows so that its keys collect about 300
+    windows, at positions near 2^31, so that their sums pass 2^32."""
+    import numpy as np
+    mat = rng.choice(np.frombuffer(b"ACGTUNa.\x00", np.uint8), (n, 139),
+                     p=[.22, .22, .22, .22, .04, .03, .02, .02, .01])
+    mat[::2, 30:30 + len(END)] = np.frombuffer(END.encode(), np.uint8)
+    npos = rng.integers(0, 130, n).astype(np.int32)
+    npos[:50] = 0
+    npos[50:100] = 129
+    pbase = rng.integers(1 << 30, 1 << 31, n).astype(np.int64)
+    return mat, npos, pbase
+
+
+def phase_kmer(rng, in_fq):
+    """The k-mer fill (kmer_hist) against its plain version, exactly, into
+    a zero accumulator as the evaluator gives it: both sides of config 4's
+    sample (the headline input's 8,000 reads, as auto-detection takes
+    them) and an edge batch from a non-zero accumulator; times by CUDA
+    graph and events, the plain time, one scatter_add_ over the same keys
+    (keys not timed) and the copy of the accumulator to the host.
+    Returns the start side's record."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.evaluator import window_matrix
+    from fastplong_tpu_torch.ops.kmer import (KEYSPACE, kmer_hist,
+                                              kmer_hist_plain, window_keys)
+    dev = torch.device("cuda")
+    seqs = _fastq_seqs(in_fq)
+    lens = np.asarray([len(x) for x in seqs], np.int64)
+    rec = None
+    for side, end in (("start side", False), ("end side", True)):
+        mat, npos, base_pos = window_matrix(seqs, lens, 1, end)
+        pbase = lens - base_pos if end else base_pos
+        args = [torch.from_numpy(a).to(dev)
+                for a in (mat, npos.astype(np.int32), pbase)] + [
+                    -1 if end else 1]
+        got = kmer_hist(torch.zeros((2, KEYSPACE), dtype=torch.int64,
+                                    device=dev), *args)
+        ref = kmer_hist_plain(torch.zeros_like(got), *args)
+        err = require_equal("kmer_hist", got, ref)
+        acc = torch.zeros_like(got)
+        ms = graph_ms(lambda: kmer_hist(acc, *args))
+        ev = cuda_ms(lambda: kmer_hist(acc, *args))
+        plain = cuda_ms(lambda: kmer_hist_plain(acc, *args), reps=3, inner=1)
+        kk, pv = window_keys(*args)
+        idx = torch.cat([kk, kk + KEYSPACE])
+        src = torch.cat([torch.ones_like(kk), pv])
+        flat = torch.zeros(2 * KEYSPACE, dtype=torch.int64, device=dev)
+        flat.scatter_add_(0, idx, src)
+        if not torch.equal(flat.view(2, KEYSPACE), got):
+            raise AssertionError("scatter_add_ yardstick disagrees with the "
+                                 "kernel")
+        lib = cuda_ms(lambda: flat.scatter_add_(0, idx, src))
+        copies = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.cpu()
+            copies.append((time.perf_counter() - t0) * 1e3)
+        windows = int(kk.numel())
+        distinct = int((got[0] != 0).sum().item())
+        bms, by = bound(mat.size + 12 * len(npos) + 32 * distinct,
+                        20 * windows, WORD32_OPS_PER_S)
+        r = dict(name="kmer_hist", shape="config 4 sample [%d, %d] %s, %d "
+                 "windows, %d keys" % (mat.shape + (side, windows, distinct)),
+                 max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
+                 bound_ms=bms, bound_by=by, library_ms=lib,
+                 copy_to_host_ms=statistics.median(copies))
+        log("phase 3: " + json.dumps(r))
+        rec = rec or r
+    for sign in (1, -1):
+        mat, npos, pbase = _kmer_edge_batch(rng)
+        args = [torch.from_numpy(a).to(dev) for a in (mat, npos, pbase)]
+        g = torch.Generator().manual_seed(sign + 2)
+        start = torch.randint(0, 1 << 40, (2, KEYSPACE), generator=g).to(dev)
+        got = kmer_hist(start.clone(), *args, sign)
+        ref = kmer_hist_plain(start.clone(), *args, sign)
+        err = require_equal("kmer_hist", got, ref)
+        top = int((ref - start)[1].max().item())
+        if top <= 1 << 32:
+            raise AssertionError("kmer_hist edge batch: no position sum "
+                                 "passed 2^32")
+        log("phase 3: " + json.dumps(dict(
+            name="kmer_hist", shape="edge batch [600, 139], sign %+d, from a "
+            "non-zero accumulator; largest position sum added %d" % (sign,
+                                                                     top),
+            max_abs_err=err)))
+    return rec
+
+
+def phase_blockscan(rng):
+    """The block-scan Myers kernel against its plain version, exactly, at
+    the middle-adapter search's shapes (plen = tlen = alen on most lanes,
+    some lanes shorter or empty): [1024, 700] (K = 22), [1024, 2000]
+    (K = 63) and a small batch with a 5,000-bp pattern (K = 157) over
+    300-column texts, which the plain loop can still run.  The plain time
+    is its one call.  Returns the 700 bp record (phase 5f's shape)."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.ops.myers import (myers_blockscan,
+                                               myers_verify_plain,
+                                               pattern_table)
+    dev = torch.device("cuda")
+    rec = None
+    for label, plen_max, N, T in (("700 bp, K=22", 700, 1024, 700),
+                                  ("2,000 bp, K=63", 2000, 1024, 2000),
+                                  ("5,000 bp, K=157", 5000, 64, 300)):
+        pat = _long_seq(plen_max, plen_max).encode()
+        pm = pattern_table(pat, dev)
+        text = _rand_bases(rng, (N, T))
+        m = min(T, plen_max)
+        for n in range(0, N, 3):      # texts close to the pattern
+            keep = rng.random(m) < 0.9
+            text[n, :m] = np.where(keep, np.frombuffer(pat[:m], np.uint8),
+                                   text[n, :m])
+        plen = np.full(N, plen_max, np.int32)
+        tlen = np.full(N, T, np.int32)
+        some = rng.random(N) < 0.1
+        plen[some] = rng.integers(-1, plen_max + 1, int(some.sum()))
+        tlen[some] = rng.integers(0, T + 1, int(some.sum()))
+        args = (pm, torch.from_numpy(plen).to(dev),
+                torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev))
+        got = myers_blockscan(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = myers_verify_plain(*args)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err = require_equal("myers_blockscan", got, ref)
+        ms = graph_ms(lambda: myers_blockscan(*args), reps=5, inner=5)
+        ev = cuda_ms(lambda: myers_blockscan(*args), reps=5, inner=5)
+        bms, by = bound(*_myers_work(*args), WORD32_OPS_PER_S)
+        r = dict(name="myers_blockscan", shape="N=%d T=%d K=%d (%s)"
+                 % (N, T, pm.shape[1], label), max_abs_err=err, ms=ms,
+                 eager_ms=ev, plain_ms=plain, bound_ms=bms, bound_by=by,
+                 library_ms=None)
+        log("phase 3: " + json.dumps(r))
+        rec = rec or r
     return rec
 
 
@@ -753,7 +936,7 @@ def phase_step(flags=HEADLINE):
         % (" ".join(f for f in flags if len(f) < 5), L, tg, tc, *found))
 
 
-def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED, lowq=0.0):
+def gen_input(path, n_reads=None, mean_len=8000, seed=SEED, lowq=0.0):
     """The repo's headline input (bench.py gen_input): gamma(3, mean/3)
     lengths with a floor of 100, 80% of reads with each adapter planted.
     lowq: the share of reads that get one to three stretches of 60-800
@@ -761,6 +944,7 @@ def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED, lowq=0.0):
     rates only make break and mask find regions for a functional check,
     and are not taken from measured reads."""
     import numpy as np
+    n_reads = n_reads or N_READS
     rng = np.random.default_rng(seed)
     qtab = (rng.integers(33 + 5, 33 + 40, size=1 << 16)).astype(np.uint8)
     s_arr = np.frombuffer(START.encode(), np.uint8)
@@ -789,6 +973,17 @@ def gen_input(path, n_reads=8000, mean_len=8000, seed=SEED, lowq=0.0):
                 chunks = []
         f.write(b"".join(chunks))
     return nbases
+
+
+def headline_input(workdir):
+    """(path, bases) of the headline input in workdir, made on first use."""
+    in_fq = os.path.join(workdir, "in.fq")
+    if not os.path.exists(in_fq):
+        t0 = time.perf_counter()
+        headline_input.bases = gen_input(in_fq)
+        log("phase 5: input %d reads, %d bases, made in %.1f s"
+            % (N_READS, headline_input.bases, time.perf_counter() - t0))
+    return in_fq, headline_input.bases
 
 
 def run_cli(workdir, in_fq, tag, device, timer_dump=None, flags=HEADLINE):
@@ -874,7 +1069,20 @@ PER_STEP = {
                    "stat_batch": 2, "regions": 2},
     "mask": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
              "stat_batch": 2, "regions": 1},
+    # config 4: the detected adapters take the headline's kernels
+    "autodetect": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
+                   "stat_batch": 2},
+    # config 5 adds one break launch (all slots at once)
+    "config5": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
+                "stat_batch": 2, "regions": 1},
+    # a 700 bp -s (and its reverse complement as -e): the trims verify
+    # alone (no full-match search at 200 bp and over), each side's middle
+    # verify takes the block-scan
+    "long": {"mismatch_scan": 2, "myers_verify": 2, "seed_scan": 2,
+             "stat_batch": 2, "myers_blockscan": 2},
 }
+# kernel launches per run: the k-mer fill, once a side of auto-detection
+PER_RUN = {"autodetect": {"kmer_hist": 2}, "config5": {"kmer_hist": 2}}
 # device ops per step call in the profiled runs of the tree before the
 # statistics kernel added into the accumulator itself (commit 0110662,
 # PERF.md)
@@ -897,11 +1105,22 @@ def kernel_wrappers(names):
     if "regions" in names:
         from fastplong_tpu_torch.ops.regions import detect_regions_summary
         wrappers["regions"] = detect_regions_summary
+    if "kmer_hist" in names:
+        from fastplong_tpu_torch.ops.kmer import kmer_hist
+        wrappers["kmer_hist"] = kmer_hist
+    if "myers_blockscan" in names:
+        from fastplong_tpu_torch.ops.myers import myers_blockscan
+        wrappers["myers_blockscan"] = myers_blockscan
     return {n: wrappers[n] for n in names}
+
+
+def path_kernels(path):
+    return tuple(PER_STEP[path]) + tuple(PER_RUN.get(path, ()))
 
 
 def check_launches(launches, steps, path):
     want = {n: c * steps for n, c in PER_STEP[path].items()}
+    want.update(PER_RUN.get(path, {}))
     missing = [n for n, c in launches.items() if c <= 0 < want[n]]
     if missing:
         raise AssertionError("kernels not launched on the %s path: %s"
@@ -916,11 +1135,7 @@ def phase_cli(workdir, walls_only=False):
     byte parity with the CPU run, and one profiled run.  walls_only: the
     three runs and the profile, printed and not checked."""
     import torch
-    in_fq = os.path.join(workdir, "in.fq")
-    t0 = time.perf_counter()
-    nbases = gen_input(in_fq)
-    log("phase 5: input %d reads, %d bases, made in %.1f s"
-        % (8000, nbases, time.perf_counter() - t0))
+    in_fq, nbases = headline_input(workdir)
     small = os.path.join(workdir, "small.fq")
     with open(in_fq, "rb") as src, open(small, "wb") as dst:
         dst.write(b"".join(src.readline() for _ in range(4 * 300)))
@@ -974,10 +1189,11 @@ def no_index_add(evs):
                              % stray)
 
 
-def run_counted(workdir, in_fq, tag, flags, path, phase):
+def run_counted(workdir, in_fq, tag, flags, path, phase, label=None):
     """One CUDA CLI run with the launch counts of `path`'s kernels set to 0
-    before it and checked after it; returns (launches, output paths)."""
-    wrappers = kernel_wrappers(tuple(PER_STEP[path]))
+    before it and checked after it; returns (launches, output paths,
+    wall)."""
+    wrappers = kernel_wrappers(path_kernels(path))
     for w in wrappers.values():
         w.launches = 0
     dump = os.path.join(workdir, "timer_%s.json" % tag)
@@ -988,11 +1204,11 @@ def run_counted(workdir, in_fq, tag, flags, path, phase):
         timing = json.load(f)
     log("phase %s: %s CLI on cuda (a functional check): wall %.3f s; %d "
         "step calls; kernel launches %s"
-        % (phase, " ".join(flags[len(HEADLINE):]), wall,
+        % (phase, label or " ".join(flags[len(HEADLINE):]), wall,
            timing["step_calls"], json.dumps(launches)))
     log("phase %s:   seconds %s" % (phase, json.dumps(timing)))
     check_launches(launches, timing["step_calls"], path)
-    return launches, outs_g
+    return launches, outs_g, wall
 
 
 def phase_break_mask(workdir):
@@ -1006,9 +1222,9 @@ def phase_break_mask(workdir):
     t0 = time.perf_counter()
     nbases = gen_input(in_fq, seed=8, lowq=0.3)
     log("phase 5b: input %d reads, %d bases (30%% with Q2-Q8 stretches), "
-        "made in %.1f s" % (8000, nbases, time.perf_counter() - t0))
-    launches, outs_g = run_counted(workdir, in_fq, "bm_cuda", flags,
-                                   "break_mask", "5b")
+        "made in %.1f s" % (N_READS, nbases, time.perf_counter() - t0))
+    launches, outs_g, _ = run_counted(workdir, in_fq, "bm_cuda", flags,
+                                      "break_mask", "5b")
     with open(outs_g[0], "rb") as f:
         fragments = len(re.findall(rb"^@r[0-9]+-", f.read(), re.M))
     failed = os.path.getsize(outs_g[1])
@@ -1045,7 +1261,8 @@ def phase_mask(workdir, in_fq, nbases):
     hold reads with runs of N at least one window long; byte parity with
     the CPU run."""
     flags = HEADLINE + ["-N"]
-    _, outs_g = run_counted(workdir, in_fq, "n_cuda", flags, "mask", "5c")
+    _, outs_g, _ = run_counted(workdir, in_fq, "n_cuda", flags, "mask",
+                               "5c")
     out_n = _n_runs(outs_g[0], 50)
     failed_n = _n_runs(outs_g[1], 50)
     log("phase 5c: reads with a run of >= 50 N: %d of %d written, %d of %d "
@@ -1057,7 +1274,138 @@ def phase_mask(workdir, in_fq, nbases):
     profile_cli(workdir, in_fq, flags=flags, phase="5c", path="mask")
 
 
-def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5"):
+def _detection_lines(workdir, tag):
+    """The auto-detection verdicts in run `tag`'s stderr."""
+    with open(os.path.join(workdir, tag + ".log")) as f:
+        return [ln.rstrip("\n") for ln in f if ln.startswith(
+            ("Detected:", "Not detected", "Found possible"))]
+
+
+def phase_autodetect(workdir):
+    """BASELINE config 4: the CLI with no adapter flags over the headline
+    input, so that both adapters are auto-detected: one CUDA run with its
+    launch counts (one k-mer fill a side, the headline's kernels per step),
+    the evaluator's seconds (the fill and the copy of its accumulator to
+    the host among them), byte parity of its four outputs and of its
+    "Detected:" lines with the CPU run.  Returns its launches."""
+    in_fq, nbases = headline_input(workdir)
+    launches, outs_g, _ = run_counted(workdir, in_fq, "c4_cuda", CONFIG4,
+                                      "autodetect", "5d",
+                                      label="config 4 (no adapter flags)")
+    cpu_parity(workdir, in_fq, outs_g, nbases, flags=CONFIG4, phase="5d")
+    got, want = (_detection_lines(workdir, t) for t in ("c4_cuda", "cpu"))
+    log("phase 5d: %s" % " | ".join(got))
+    if got != want or len(got) != 2 or not all(
+            d.startswith("Detected:") for d in got):
+        raise AssertionError("auto-detection differs or failed: cuda %s, "
+                             "cpu %s" % (got, want))
+    return launches
+
+
+def _split_files(workdir, tag):
+    import glob
+    paths = glob.glob(os.path.join(workdir, "*." + tag + ".fq"))
+    return {os.path.basename(p).split(".")[0]: p for p in paths}
+
+
+def phase_config5(workdir, card):
+    """BASELINE config 5, -b -y --split 4 (auto-detection, break, the
+    low-complexity filter, four split files) over the headline input: one
+    CUDA run with its launch counts and wall beside the card, the four
+    split files byte-equal to the CPU run's, the JSON without its command
+    line and the normalised HTML equal, every read and base accounted
+    for."""
+    in_fq, nbases = headline_input(workdir)
+    _, outs_g, wall = run_counted(workdir, in_fq, "c5_cuda", CONFIG5,
+                                  "config5", "5e",
+                                  label="config 5 (-b -y --split 4)")
+    log("phase 5e: config 5 wall %.3f s for %d bases (%.2f Mbases/s), %s; "
+        "a functional check" % (wall, nbases, nbases / wall / 1e6, card))
+    t0 = time.perf_counter()
+    _, outs_c = run_cli(workdir, in_fq, "c5_cpu", "cpu", flags=CONFIG5)
+    log("phase 5e: the same CLI on the cpu in %.1f s"
+        % (time.perf_counter() - t0))
+    files_g, files_c = (_split_files(workdir, t) for t in ("c5_cuda",
+                                                           "c5_cpu"))
+    if sorted(files_g) != sorted(files_c) or len(files_g) != 4:
+        raise AssertionError("split files differ: %s vs %s"
+                             % (sorted(files_g), sorted(files_c)))
+    reads = bases = 0
+    for k in sorted(files_g):
+        with open(files_g[k], "rb") as a, open(files_c[k], "rb") as b:
+            data = a.read()
+            if data != b.read():
+                raise AssertionError("split file %s differs between cuda "
+                                     "and cpu runs" % k)
+        seqs = data.split(b"\n")[1::4]
+        reads += len(seqs)
+        bases += sum(map(len, seqs))
+    for g, c in zip(outs_g[2:], outs_c[2:]):
+        if _normalised(g) != _normalised(c):
+            raise AssertionError("%s differs between cuda and cpu runs"
+                                 % os.path.basename(g))
+    with open(outs_g[2]) as f:
+        rep = json.load(f)["summary"]
+    got = (rep["before_filtering"]["total_reads"],
+           rep["before_filtering"]["total_bases"],
+           rep["after_filtering"]["total_reads"],
+           rep["after_filtering"]["total_bases"])
+    if got != (N_READS, nbases, reads, bases):
+        raise AssertionError("config 5 report %s, expected %s"
+                             % (got, (N_READS, nbases, reads, bases)))
+    log("phase 5e: split files %s identical on cuda and cpu (%d reads, %d "
+        "bases, as the report counts), json and html identical"
+        % (" ".join("%s: %d B" % (k, os.path.getsize(files_g[k]))
+                    for k in sorted(files_g)), reads, bases))
+
+
+def long_adapter_input(path, n_reads=300, seed=9):
+    """A few hundred reads of 800-4,000 bases: LONG_ADAPTER planted in the
+    middle of 60% of them (with up to 30 substitutions), its last 40-150
+    bases at the start of 20%, nothing in the rest; Q8-Q40 qualities."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ad = np.frombuffer(LONG_ADAPTER.encode(), np.uint8)
+    nbases = 0
+    with open(path, "wb") as f:
+        for i in range(n_reads):
+            seq = rng.choice(acgt, int(rng.integers(800, 4001)))
+            u = rng.random()
+            if u < 0.6:
+                a = ad.copy()
+                k = int(rng.integers(0, 31))
+                a[rng.integers(0, len(a), k)] = rng.choice(acgt, k)
+                p = int(rng.integers(0, len(seq)))
+                seq = np.concatenate([seq[:p], a, seq[p:]])
+            elif u < 0.8:
+                seq = np.concatenate([ad[-int(rng.integers(40, 151)):], seq])
+            qual = rng.integers(33 + 8, 33 + 41, len(seq)).astype(np.uint8)
+            nbases += len(seq)
+            f.write(b"@long%d\n%s\n+\n%s\n" % (i, seq.tobytes(),
+                                                qual.tobytes()))
+    return nbases
+
+
+def phase_long_adapter(workdir):
+    """A 700-bp start adapter (-s; its reverse complement is the end
+    adapter) over a few hundred reads that carry it: one CUDA run in which
+    each side's middle-adapter verify takes the block-scan kernel (launch
+    counts checked), and byte parity of its four outputs with the CPU
+    run.  Returns its launches."""
+    in_fq = os.path.join(workdir, "long.fq")
+    nbases = long_adapter_input(in_fq)
+    flags = ["-s", LONG_ADAPTER]
+    launches, outs_g, _ = run_counted(workdir, in_fq, "long_cuda", flags,
+                                      "long", "5f",
+                                      label="-s (a 700 bp adapter)")
+    cpu_parity(workdir, in_fq, outs_g, nbases, flags=flags, phase="5f",
+               n_reads=300)
+    return launches
+
+
+def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5",
+               n_reads=None):
     """The same CLI on the CPU; its four outputs must equal the CUDA
     run's."""
     t0 = time.perf_counter()
@@ -1072,7 +1420,7 @@ def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5"):
     log("phase %s: whole-input outputs identical on cuda and cpu "
         "(fastq %d B, failed %d B, json %d B, html %d B)"
         % ((phase,) + tuple(os.path.getsize(p) for p in outs_g)))
-    check_report(outs_g[0], outs_g[2], 8000, nbases, phase)
+    check_report(outs_g[0], outs_g[2], n_reads or N_READS, nbases, phase)
 
 
 def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None):
@@ -1133,13 +1481,13 @@ def main():
         return 2
     workdir = tempfile.mkdtemp(prefix="fastplong_chip_smoke_")
     try:
-        phase_device()
+        card = phase_device()
         phase_build()
         if walls_only:
             launches, kind = phase_cli(workdir, walls_only=True)
             print(json.dumps({"walls_of": here, "launches": launches}))
             return 0
-        rec = phase_kernels()
+        rec = phase_kernels(headline_input(workdir)[0])
         phase_step()
         phase_step(HEADLINE + ["-b", "-N"])
         phase_step(HEADLINE + ["-N"])
@@ -1147,6 +1495,10 @@ def main():
         bm, lowq_fq, lowq_bases = phase_break_mask(workdir)
         launches["regions"] = bm["regions"]
         phase_mask(workdir, lowq_fq, lowq_bases)
+        launches["kmer_hist"] = phase_autodetect(workdir)["kmer_hist"]
+        phase_config5(workdir, card)
+        launches["myers_blockscan"] = phase_long_adapter(
+            workdir)["myers_blockscan"]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     from fastplong_tpu_torch.ops.cuda_lib import CSRC
@@ -1156,10 +1508,13 @@ def main():
         "myers_verify": "fastplong_tpu/ops/myers.py:149",
         "seed_scan": "fastplong_tpu/ops/adapter.py:195",
         "stat_batch": "fastplong_tpu/ops/stats_kernels.py:23",
-        "regions": "fastplong_tpu/ops/regions.py:36"}
+        "regions": "fastplong_tpu/ops/regions.py:36",
+        "kmer_hist": "fastplong_tpu/ops/kmer.py:41",
+        "myers_blockscan": "fastplong_tpu/ops/myers.py:233"}
     # launches: each kernel's count on its own path, set to 0 just before
     # that run and read just after it (the headline for the first four,
-    # the break-and-mask run for the region scan)
+    # the break-and-mask run for the region scan, config 4 for the k-mer
+    # fill, the 700 bp adapter's run for the block-scan)
     kernels = []
     for name in replaces:
         r = rec[name]

@@ -1,10 +1,13 @@
 """fastplong_tpu_torch: the PyTorch/CUDA port of fastplong_tpu.
 
-The headline trim-and-filter path, with break and N-mask (-b, -N), runs
-on an NVIDIA GPU through five hand-written CUDA kernels (csrc/: the
-adapter mismatch scan, the Myers verify, the seed scan, the statistics
-reduction and the low-quality region scan); the host layer (FASTQ I/O,
-batching, reports) is the same as the JAX package's.  Public entry points:
+The headline trim-and-filter path, with break and N-mask (-b, -N),
+adapter auto-detection, split output and adapters of any length, runs on
+an NVIDIA GPU through seven hand-written CUDA kernels (csrc/: the adapter
+mismatch scan, the Myers verify, the seed scan, the statistics reduction,
+the low-quality region scan, the k-mer histogram of auto-detection and
+the block-scan Myers form for adapters longer than 640 bp); the host
+layer (FASTQ I/O, batching, reports) is the same as the JAX package's.
+Public entry points:
 
     from fastplong_tpu_torch.main import main          # CLI
     from fastplong_tpu_torch.config import Options     # programmatic config

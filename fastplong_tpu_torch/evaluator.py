@@ -9,17 +9,22 @@ Host/numpy equivalent of the reference Evaluator (src/evaluator.cpp):
     <=64K reads, top-key selection with complexity gates, greedy consensus
     extension to <=64bp (evaluator.cpp:105-408)
 
-The k-mer fill is vectorized numpy (the sample is bounded, so this is not a
-throughput path); thresholds replicate the reference bit-for-bit, including
-its quirk of computing the `diff` complexity gate on the COUNT value's bit
-pattern (evaluator.cpp:294-301 uses `val`, not `k`).
+The k-mer fill runs on the run's device (ops/kmer.py: the CUDA kernel
+csrc/kmer_hist.cu on a card, its plain PyTorch version on the CPU); the top
+key and the consensus extension stay on the host.  Thresholds replicate the
+reference bit-for-bit, including its quirk of computing the `diff`
+complexity gate on the COUNT value's bit pattern (evaluator.cpp:294-301
+uses `val`, not `k`).
 """
 
 import sys
+import time
 
 import numpy as np
 
+from . import resolve_device
 from .io.fastq import FastqStreamReader
+from .ops.kmer import kmer_histogram
 from .util import error_exit
 
 KEYLEN = 10
@@ -50,9 +55,16 @@ class _PrefixSample:
 
 
 class Evaluator:
-    def __init__(self, opt):
+    def __init__(self, opt, device=None):
+        """device: where the k-mer fill runs (resolve_device's rule)."""
         self.opt = opt
+        self.device = resolve_device(device)
         self._sample = None
+        self.seconds = {}    # adapter detection's stages, summed over sides
+
+    def _add_seconds(self, stage, t0):
+        self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                               + time.perf_counter() - t0)
 
     # ------------------------------------------------------ shared sample
 
@@ -194,14 +206,18 @@ class Evaluator:
 
     def _detect(self, counts, posacc, total, end_side):
         opt = self.opt
+        t0 = time.perf_counter()
         total_key = int((counts > 0).sum())
         counts[0] = 0  # AAAAAAAAAA
         key = get_top_key(counts)
+        self._add_seconds("top_key", t0)
         count = int(counts[key]) if key >= 0 else 0
         if count > 10 and count * total_key > total * FOLD_THRESHOLD:
+            t0 = time.perf_counter()
             adapter = extend_key_to_adapter(
                 key, counts, posacc,
                 is_rna=(opt.is_rna if end_side else False))
+            self._add_seconds("extend", t0)
             if len(adapter) > 16:
                 sys.stderr.write("Detected: %s\n" % adapter)
                 if end_side:
@@ -218,61 +234,44 @@ class Evaluator:
             sys.stderr.write("Not detected\n")
 
     def _kmer_histogram(self, seqs, lens, shift_tail, end_side):
-        """counts[KEYSPACE], position accumulator, total valid windows.
+        """counts[KEYSPACE], position accumulator, total valid windows;
+        the fill runs on the run's device (ops/kmer.py:kmer_histogram)."""
+        t0 = time.perf_counter()
+        mat, npos, base_pos = window_matrix(seqs, lens, shift_tail, end_side)
+        self._add_seconds("kmer_matrix", t0)
+        return kmer_histogram(mat, npos, base_pos, lens, end_side,
+                              self.device, seconds=self.seconds)
 
-        start side: pos in [0, min(len-10-shiftTail, 127)], posacc += pos
-        end side:   pos in [max(0, len-10-shiftTail-128), len-10-shiftTail],
-                    posacc += len - pos          (evaluator.cpp:179-234)
 
-        The histogram fill is vectorized numpy (the sample is bounded to
-        64K reads, so it is not a throughput path).
-        """
-        n = len(seqs)
-        win = 128 + KEYLEN  # chars needed for 128 window positions
-        mat = np.zeros((n, win + 1), np.uint8)  # +1 for inclusive end range
-        base_pos = np.zeros(n, np.int64)  # absolute pos of column 0
-        npos = np.zeros(n, np.int64)      # number of window positions
-        for i, s in enumerate(seqs):
-            last = lens[i] - KEYLEN - shift_tail  # inclusive last pos
-            if last < 0:
-                continue
-            if end_side:
-                sp = max(0, last - 128)
-                base_pos[i] = sp
-                npos[i] = min(last - sp + 1, 129)
-            else:
-                base_pos[i] = 0
-                npos[i] = min(last + 1, 128)
-            sp = base_pos[i]
-            chunk = s[sp:sp + npos[i] + KEYLEN - 1]
-            mat[i, :len(chunk)] = np.frombuffer(chunk, np.uint8)
+def window_matrix(seqs, lens, shift_tail, end_side):
+    """(mat [n, 139] uint8, npos [n], base_pos [n]) of one side's k-mer
+    windows: row i holds read i's bytes from base_pos[i] on, and npos[i]
+    window positions start there.
 
-        codes = _CODE[mat].astype(np.int64)  # [n, win+1]
-        W = int(npos.max()) if n else 0
-        if W <= 0:
-            return (np.zeros(KEYSPACE, np.uint32),
-                    np.zeros(KEYSPACE, np.uint64), 0)
-        keys = np.zeros((n, W), np.int64)
-        valid = np.ones((n, W), bool)
-        for k in range(KEYLEN):
-            c = codes[:, k:k + W]
-            keys = (keys << 2) | np.maximum(c, 0)
-            valid &= c >= 0
-        colpos = np.arange(W, dtype=np.int64)[None, :]
-        valid &= colpos < npos[:, None]
-
-        counts = np.zeros(KEYSPACE, np.uint32)
-        posacc = np.zeros(KEYSPACE, np.uint64)
-        kk = keys[valid]
-        abs_pos = (base_pos[:, None] + colpos)
+    start side: pos in [0, min(len-10-shiftTail, 127)], posacc += pos
+    end side:   pos in [max(0, len-10-shiftTail-128), len-10-shiftTail],
+                posacc += len - pos          (evaluator.cpp:179-234)
+    """
+    n = len(seqs)
+    win = 128 + KEYLEN  # chars needed for 128 window positions
+    mat = np.zeros((n, win + 1), np.uint8)  # +1 for inclusive end range
+    base_pos = np.zeros(n, np.int64)  # absolute pos of column 0
+    npos = np.zeros(n, np.int64)      # number of window positions
+    for i, s in enumerate(seqs):
+        last = lens[i] - KEYLEN - shift_tail  # inclusive last pos
+        if last < 0:
+            continue
         if end_side:
-            pv = (lens[:, None] - abs_pos)
+            sp = max(0, last - 128)
+            base_pos[i] = sp
+            npos[i] = min(last - sp + 1, 129)
         else:
-            pv = abs_pos
-        pp = pv[valid]
-        np.add.at(counts, kk, 1)
-        np.add.at(posacc, kk, pp.astype(np.uint64))
-        return counts, posacc, int(valid.sum())
+            base_pos[i] = 0
+            npos[i] = min(last + 1, 128)
+        sp = base_pos[i]
+        chunk = s[sp:sp + npos[i] + KEYLEN - 1]
+        mat[i, :len(chunk)] = np.frombuffer(chunk, np.uint8)
+    return mat, npos, base_pos
 
 
 # ------------------------------------------------------------- top key

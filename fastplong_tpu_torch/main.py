@@ -339,7 +339,6 @@ def options_from_args(args, argv):
 def unsupported(opt, argv):
     """The first flag of this run whose code is not ported yet, as an error
     message naming its ROADMAP item; None when the run is supported."""
-    from .ops.myers import MAX_DEVICE_PATTERN
     if os.environ.get("FASTPLONG_DAEMON") == "1":
         return "FASTPLONG_DAEMON=1 is not ported yet (ROADMAP A.19)"
     if "--prewarm" in argv[1:]:
@@ -350,13 +349,6 @@ def unsupported(opt, argv):
         return "--devices above 1 is not ported yet (ROADMAP A.17)"
     if opt.num_hosts > 1:
         return "--num_hosts above 1 is not ported yet (ROADMAP A.18)"
-    if opt.split.enabled:
-        return "--split/--split_by_lines is not ported yet (ROADMAP A.15)"
-    if opt.adapter.enabled:
-        seqs = [opt.adapter.sequence_start, opt.adapter.sequence_end]
-        if any(len(s) > MAX_DEVICE_PATTERN for s in seqs):
-            return ("adapters longer than %d bp are not ported yet "
-                    "(ROADMAP A.13)" % MAX_DEVICE_PATTERN)
     return None
 
 

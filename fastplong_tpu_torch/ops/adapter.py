@@ -28,7 +28,7 @@ import torch
 
 from . import cuda_lib
 from .mismatch import mismatch_scan
-from .myers import (MAX_DEVICE_PATTERN, M32, myers_verify,
+from .myers import (MAX_K, M32, myers_blockscan, myers_verify,
                     myers_verify_pair, pattern_table)
 from .primitives import arange, first_true, last_true, take_cols
 
@@ -48,8 +48,8 @@ class AdapterSpec:
     The start/end trim verifies compare at most min(alen, WINDOW) pattern
     bytes (the full-match search is empty for alen >= WINDOW and the
     partial path's cmplen is bounded by the window); only the middle-adapter
-    global search needs the full-length pattern, which this port supports
-    up to MAX_DEVICE_PATTERN bytes.
+    global search needs the full-length pattern, whose verify takes the
+    block-scan kernel beyond MAX_DEVICE_PATTERN bytes (_distance).
     """
 
     def __init__(self, seq: str, ed_max: float, device="cpu"):
@@ -63,8 +63,7 @@ class AdapterSpec:
         self.verify_cap = min(self.alen, WINDOW)
         self.pm_fwd = pattern_table(self.data[:self.verify_cap], device)
         self.pm_rev = pattern_table(self.data[::-1][:self.verify_cap], device)
-        self.pm_full = (pattern_table(self.data, device)
-                        if self.alen <= MAX_DEVICE_PATTERN else None)
+        self.pm_full = pattern_table(self.data, device)
         # round(edMax*cmplen) for every cmplen in 0..alen
         self.thr_tbl = torch.tensor(
             [_cpp_round(ed_max * c) for c in range(self.alen + 1)],
@@ -108,14 +107,18 @@ def _verify_problem(bases, abs_start, spec, cmplen=None, reverse=False,
     ok = (j < n[:, None]) & (src >= 0) & (src < L)
     text = torch.where(ok, take_cols(bases, torch.clamp(src, 0, L - 1)), 0)
     if full:
-        if spec.pm_full is None:
-            raise NotImplementedError(
-                "adapters longer than %d bp need the block-scan Myers form, "
-                "which is not ported yet" % MAX_DEVICE_PATTERN)
         pm = spec.pm_full
     else:
         pm = spec.pm_rev if reverse else spec.pm_fwd
     return pm, n, text.contiguous(), n
+
+
+def _distance(problem):
+    """Myers distances of one verify problem: the verify kernel up to
+    MAX_DEVICE_PATTERN bytes (K <= MAX_K words), the block-scan beyond."""
+    if problem[0].shape[1] > MAX_K:
+        return myers_blockscan(*problem)
+    return myers_verify(*problem)
 
 
 def _thr_select(cmplen, spec):
@@ -413,13 +416,15 @@ def find_middle_adapters(bases, lo, hi, start_spec, end_spec, ext,
     Returns (found, start, length) relative to the span."""
     rlen = hi - lo
     # both searches' candidates first, then their verifies in one launch
+    # (a side longer than MAX_DEVICE_PATTERN takes the block-scan alone)
     sp, verify_s = _global_candidate(bases, lo, hi, start_spec, mm=mm_start)
     ep, verify_e = _global_candidate(bases, lo, hi, end_spec, mm=mm_end)
-    if verify_s is not None and verify_e is not None:
+    if (verify_s is not None and verify_e is not None
+            and max(verify_s[0].shape[1], verify_e[0].shape[1]) <= MAX_K):
         ed_s, ed_e = myers_verify_pair(verify_s, verify_e)
     else:
-        ed_s = None if verify_s is None else myers_verify(*verify_s)
-        ed_e = None if verify_e is None else myers_verify(*verify_e)
+        ed_s = None if verify_s is None else _distance(verify_s)
+        ed_e = None if verify_e is None else _distance(verify_e)
     sp = _global_accept(sp, ed_s, start_spec)
     ep = _global_accept(ep, ed_e, end_spec)
     slen = start_spec.alen

@@ -1,5 +1,5 @@
 """Batched Myers bit-parallel Levenshtein distance (kernel 2,
-csrc/myers_verify.cu).
+csrc/myers_verify.cu, and kernel 7, csrc/myers_blockscan.cu).
 
 Port of fastplong_tpu/ops/myers.py:myers_distance_unrolled (reference
 src/editdistance.cpp:31-126, the Hyyro/Myers VP/VN/HP/HN recurrence).  The
@@ -11,7 +11,11 @@ bits only carry upward and cannot reach the tracked bit.
 
 myers_verify_pair serves two independent problems (each with its own
 table, K, T and N) in one kernel launch; the adapter trims and the
-middle-adapter search pair their verifies through it.
+middle-adapter search pair their verifies through it.  myers_blockscan
+(port of myers_distance_blockscan) takes a table of any K, for the
+middle-adapter search of adapters longer than MAX_DEVICE_PATTERN.  Both
+share one plain version, the column loop with the word chain inside,
+which takes any K.
 
 The plain version computes in int64 masked to 32 bits: torch's uint32 has
 no add, shifts or comparisons on the CPU.
@@ -24,7 +28,7 @@ from . import cuda_lib
 
 BLOCK = 32
 # the reference's Myers/DP boundary (editdistance.cpp:88-124); longer
-# patterns take the block-scan form, which this port does not have yet
+# patterns take the block-scan form (myers_blockscan)
 MAX_DEVICE_PATTERN = 640
 MAX_K = MAX_DEVICE_PATTERN // BLOCK
 M32 = 0xFFFFFFFF
@@ -141,3 +145,36 @@ def myers_verify_pair(first, second):
 
 
 myers_verify.launches = 0
+
+
+def myers_blockscan(pm_tbl, plen, text, tlen):
+    """myers_verify for a [256, K] table of any K (the middle-adapter
+    search of adapters longer than MAX_DEVICE_PATTERN).  CPU tensors take
+    the plain version; CUDA tensors launch the block-scan kernel."""
+    if text.device.type == "cpu":
+        return myers_verify_plain(pm_tbl, plen, text, tlen)
+    N, T = text.shape
+    K = pm_tbl.shape[1]
+    if (text.dtype != torch.uint8 or pm_tbl.dtype != torch.int32
+            or pm_tbl.shape[0] != 256 or K < 1):
+        raise ValueError("myers_blockscan: unsupported table %s %s or text "
+                         "%s" % (tuple(pm_tbl.shape), pm_tbl.dtype,
+                                 text.dtype))
+    plen = plen.to(torch.int32).contiguous()
+    tlen = tlen.to(torch.int32).contiguous()
+    cuda_lib.require_cuda("myers_blockscan", text, plen, tlen, pm_tbl)
+    out = torch.empty(N, dtype=torch.int32, device=text.device)
+    if N == 0:
+        return out
+    nblk = max((T + 7) // 8, 1)
+    scratch = torch.empty((N, nblk), dtype=torch.int32, device=text.device)
+    rc = cuda_lib.lib().fpl_myers_blockscan(
+        cuda_lib.ptr(text), N, T, cuda_lib.ptr(plen), cuda_lib.ptr(tlen),
+        cuda_lib.ptr(pm_tbl), K, cuda_lib.ptr(scratch), nblk,
+        cuda_lib.ptr(out), cuda_lib.stream(text))
+    cuda_lib.check(rc, "myers_blockscan")
+    myers_blockscan.launches += 1
+    return out
+
+
+myers_blockscan.launches = 0

@@ -39,6 +39,7 @@ from .device import (build_fast_step, global_stat_len, kernel_params,
 from .emit import emit_block_fast
 from .host_stats import (BatchStatAccumulator, HostStatAccumulator,
                          masked_span, median_qual)
+from .split import SplitWriterSet
 
 MAX_IN_FLIGHT = 3          # batches dispatched but not yet consumed
 MAX_BLOCKS_PENDING = 24    # parsed blocks held before forcing drains
@@ -135,6 +136,7 @@ class SingleEndRunner:
         self.max_seen = 0        # longest device-statted read
         self.out_writer = None
         self.failed_writer = None
+        self.split_set = None    # --split/--split_by_lines writers
         self.timer = StageTimer()
         self.step_calls = 0      # device step launches (one per batch)
 
@@ -148,14 +150,19 @@ class SingleEndRunner:
 
     def run(self):
         opt = self.opt
-        if opt.failed_out:
-            self.failed_writer = make_output_writer(
-                opt.failed_out, opt.compression,
-                buffer_size=opt.writer_buffer_size)
-        if opt.out or opt.output_to_stdout:
-            self.out_writer = make_output_writer(
-                opt.out, opt.compression, stdout=opt.output_to_stdout,
-                buffer_size=opt.writer_buffer_size)
+        if opt.split.enabled:
+            # split mode: per-thread rotating writers, no failed_out
+            # (the reference skips initOutput, seprocessor.cpp:66-67)
+            self.split_set = SplitWriterSet(opt)
+        else:
+            if opt.failed_out:
+                self.failed_writer = make_output_writer(
+                    opt.failed_out, opt.compression,
+                    buffer_size=opt.writer_buffer_size)
+            if opt.out or opt.output_to_stdout:
+                self.out_writer = make_output_writer(
+                    opt.out, opt.compression, stdout=opt.output_to_stdout,
+                    buffer_size=opt.writer_buffer_size)
         reader = FastqStreamReader(
             "/dev/stdin" if opt.input_from_stdin and not opt.in_file
             else opt.in_file)
@@ -221,6 +228,8 @@ class SingleEndRunner:
         timer.add("total_loop", time.perf_counter() - t_run0)
 
         t0 = time.perf_counter()
+        if self.split_set is not None:
+            self.split_set.close()
         for w in (self.out_writer, self.failed_writer):
             if w is not None:
                 w.close()
@@ -429,6 +438,17 @@ class SingleEndRunner:
                 self.filter_result.add_adapter_trimmed(rec_seq, cnt)
 
     def _emit(self, block, res):
+        if self.split_set is not None:
+            # writer rotation advances only at 16-read pack boundaries
+            # (threadconfig.cpp:88-108), so the block's output is sliced
+            # per pack by its per-record byte lengths
+            out_b, _, read_lens = emit_block_fast(
+                block, res, self.cap, self.mask_on, True, False,
+                return_read_lens=True)
+            read_passed = (res.active & res.passed
+                           & ~res.null[:, None]).any(axis=1)
+            self.split_set.add_block(out_b, read_lens, read_passed)
+            return
         out_b, failed_b = emit_block_fast(
             block, res, self.cap, self.mask_on, self.out_writer is not None,
             self.failed_writer is not None)

@@ -2,8 +2,8 @@
 
 Port of fastplong_tpu/processor.py, mirroring the reference main() sequence
 (src/main.cpp:258-305): evaluator pre-passes (sequence length / RNA check,
-adapter auto-detection), option validation, then the pipeline run and
-reports (src/seprocessor.cpp:105-146).
+adapter auto-detection, read-count estimation for splitting), option
+validation, then the pipeline run and reports (src/seprocessor.cpp:105-146).
 """
 
 import json
@@ -11,6 +11,7 @@ import os
 import sys
 import time
 
+from . import resolve_device
 from .evaluator import Evaluator
 from .report.html_report import report_html
 from .report.json_report import report_json
@@ -20,25 +21,38 @@ def process(opt, device=None):
     """Run one configured job; device defaults to FASTPLONG_TORCH_DEVICE,
     else cuda (see fastplong_tpu_torch.resolve_device)."""
     from .pipeline.runner import SingleEndRunner
+    device = resolve_device(device)
     phases = {}
     t0 = time.perf_counter()
     support_evaluation = (not opt.input_from_stdin
                           and opt.in_file != "/dev/stdin")
 
-    eva = Evaluator(opt)
+    eva = Evaluator(opt, device)
     if support_evaluation:
-        # one shared prefix pass feeds seq-len/RNA and adapter detection
-        eva.load_prefix(opt.shall_detect_adapter(), False)
+        # one shared prefix pass feeds seq-len/RNA, adapter detection and
+        # read-count estimation
+        eva.load_prefix(opt.shall_detect_adapter(),
+                        opt.split.need_evaluation)
         eva.evaluate_seq_len_and_check_rna()
 
+    read_num = 0
     if opt.shall_detect_adapter():
         if not support_evaluation:
             sys.stderr.write("Adapter auto-detection is disabled for STDIN mode\n")
         else:
-            eva.eval_adapter_and_read_num()
+            read_num = eva.eval_adapter_and_read_num()
             sys.stderr.write("\n")
 
     opt.validate()
+
+    if opt.split.need_evaluation and support_evaluation:
+        if read_num == 0:
+            read_num = eva.evaluate_read_num()
+        opt.split.size = read_num // opt.split.number
+        if opt.split.size <= 0:
+            opt.split.size = 1
+            sys.stderr.write("WARNING: the input file has less reads than the"
+                             " number of files to split\n")
 
     phases["evaluator"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -73,6 +87,8 @@ def process(opt, device=None):
             json.dump({"device": str(runner.device),
                        "phase_seconds": {k: round(v, 4)
                                          for k, v in phases.items()},
+                       "evaluator_seconds": {k: round(v, 4) for k, v
+                                             in eva.seconds.items()},
                        "stage_seconds": runner.timer.report(),
                        "step_calls": runner.step_calls}, f)
     return pre_stats, post_stats, filter_result

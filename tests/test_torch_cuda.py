@@ -72,7 +72,7 @@ ODD = np.frombuffer(b"ACGTNRYKMacgtn", np.uint8)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("alen", [1, 5, 23, 28, 31, 32, 33, 64, 200, 255,
-                                  256, 300])
+                                  256, 300, 700, 2000])
 def test_mismatch_scan_shapes_on_card(card, alen):
     """The scan against its plain version for every L and B here, with
     zero padding at the end of short reads and non-ACGTN bytes; rows
@@ -272,3 +272,51 @@ def test_regions_block_steps_on_card(card, w):
         assert int(ref[2].sum()) > 0
         for g, r in zip(got, ref):
             assert torch.equal(g, r), q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,T,N", [(21, 700, 64), (22, 330, 96),
+                                   (63, 160, 40), (157, 96, 9)])
+def test_myers_blockscan_on_card(card, K, T, N):
+    """The block-scan against its plain version at K = 21, 22, 63 and 157
+    (5,000 bp), one launch a call; text widths that are not multiples of
+    8 and empty patterns and texts included."""
+    from fastplong_tpu_torch.ops.myers import (myers_blockscan,
+                                               myers_verify_plain)
+    rng = np.random.default_rng(90 + K)
+    args = _problem(rng, K, T, N, card)
+    before = myers_blockscan.launches
+    got = myers_blockscan(*args)
+    torch.cuda.synchronize()
+    assert myers_blockscan.launches == before + 1
+    assert torch.equal(got, myers_verify_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1], ids=["start", "end"])
+def test_kmer_hist_on_card(card, sign):
+    """The k-mer fill against its plain version from a non-zero
+    accumulator: bytes outside ACGTU, npos 0, 129 and beyond the row,
+    positions whose sums pass 2^32."""
+    from fastplong_tpu_torch.ops.kmer import (KEYSPACE, kmer_hist,
+                                              kmer_hist_plain)
+    rng = np.random.default_rng(5 + sign)
+    n = 2000
+    mat = rng.choice(np.frombuffer(b"ACGTUNa.", np.uint8), (n, 139),
+                     p=[.22, .22, .22, .22, .04, .04, .02, .02])
+    mat[::3, 20:43] = np.frombuffer(b"AGCAATACGTAACTGAACGAAGT", np.uint8)
+    npos = rng.integers(0, 130, n).astype(np.int32)
+    npos[:4] = (0, 129, 300, -5)
+    pbase = rng.integers(0, 1 << 31, n).astype(np.int64)
+    g = torch.Generator().manual_seed(sign + 2)
+    start = torch.randint(0, 1 << 40, (2, KEYSPACE), generator=g)
+    got, ref = start.to(card), start.clone()
+    before = kmer_hist.launches
+    kmer_hist(got, *(torch.from_numpy(a).to(card)
+                     for a in (mat, npos, pbase)), sign)
+    torch.cuda.synchronize()
+    assert kmer_hist.launches == before + 1
+    kmer_hist_plain(ref, *(torch.from_numpy(a) for a in (mat, npos, pbase)),
+                    sign)
+    assert torch.equal(got.cpu(), ref)
+    assert int((ref - start)[1].max()) > 1 << 32

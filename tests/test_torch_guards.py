@@ -112,12 +112,9 @@ def test_step_without_card_fails(tmp_path, no_card):
 UNSUPPORTED = [
     ("devices", ["--devices", "2"], {}, "A.17"),
     ("num_hosts", ["--num_hosts", "2"], {}, "A.18"),
-    ("split", ["--split", "2"], {}, "A.15"),
-    ("split_by_lines", ["--split_by_lines", "1000"], {}, "A.15"),
     ("prewarm", ["--prewarm"], {}, "A.19"),
     ("profile", ["--profile", "prof"], {}, "A.19"),
     ("daemon", [], {"FASTPLONG_DAEMON": "1"}, "A.19"),
-    ("long_adapter", ["-s", "ACGT" * 175], {}, "A.13"),
 ]
 
 
