@@ -14,7 +14,8 @@ kernel, which adds into the run's accumulator, from a non-zero one over 1,
 scan in the break and mask forms and on an edge batch; the k-mer fill of
 adapter auto-detection on both sides of the headline input's sample and on
 an edge batch; the block-scan Myers kernel at 700, 2,000 and 5,000 bp;
-the mismatch scan's int32 path at 700 and 2,000 bp), checks the
+the mismatch scan's int32 path at 700 and 2,000 bp, with an fp32 one-hot
+conv1d as its library yardstick), checks the
 fused step on CUDA against the port's CPU step with the headline and the
 break-and-mask parameters, then drives the headline CLI (-s START -e END
 -5 -3 -x, both reports, --failed_out) on CUDA three times over a 64-Mbase
@@ -35,6 +36,14 @@ side; outputs and "Detected:" lines equal to the CPU run's) and config 5
 run's) over the headline input, and a 700-bp start adapter over a few
 hundred reads (each side's middle verify through the block-scan kernel;
 byte parity with the CPU run), each with its launch counts checked.
+Then the run-level entry points, each held to the headline run of phase
+5: the headline with --profile DIR (5g: one trace file holding the four
+headline kernels' device events by CUDA symbol; outputs unchanged),
+--prewarm as a subprocess from a copy of the package with no built
+library, and a fresh process timed by its parts (5h, cold start),
+parallel.py in process over the headline input cut into four files (5i),
+and --num_hosts 2 as two processes sharing the card over a gloo group,
+its shards, merged report and offline merge (5j).
 
     python3 chip_smoke.py --walls
 
@@ -241,8 +250,9 @@ def phase_kernels(in_fq):
         plain = cuda_ms(lambda: mismatch_scan_plain(x, ad), reps=3, inner=2)
         bms, by = bound(B * L + B * L * got.element_size() + alen,
                         2 * B * L * alen, INT8_OPS_PER_S)
-        # the fp16 one-hot convolution counts exactly up to 2,048
-        lib = _conv_mismatch(x, ad, got) if alen <= 300 else None
+        # the one-hot convolution: fp16 (exact up to 2,048) up to 300 bp,
+        # fp32 with TF32 off (exact up to 2^24) at 700 and 2,000 bp
+        lib = _conv_mismatch(x, ad, got)
         r = dict(name="mismatch_scan", shape="[%d, %d] x %s" % (B, L, label),
                  max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
                  bound_ms=bms, bound_by=by, library_ms=lib)
@@ -811,22 +821,26 @@ def _myers_work(pm, plen, text, tlen):
 
 def _conv_mismatch(x, ad, mm):
     """Time of one torch conv1d computing the same mismatch counts from a
-    one-hot (fp16) encoding of the bases: mm = alen - matches.  Checked
-    against the kernel's output; the encoding is not timed."""
+    one-hot encoding of the bases: mm = alen - matches.  fp16 up to 300
+    bp (its integers are exact up to 2,048), else fp32 with TF32 off
+    (main() sets it), exact up to 2^24.  Checked equal to the kernel's
+    output; the encoding is not timed."""
     import torch
     import torch.nn.functional as F
     codes = torch.full((256,), 5, dtype=torch.int64, device=x.device)
     for i, c in enumerate(b"ACGTN"):
         codes[c] = i
     alen = ad.shape[0]
+    dtype = torch.float16 if alen <= 300 else torch.float32
     xp = F.pad(x, (0, alen - 1))
     onehot = F.one_hot(codes[xp.long()], 6)[..., :5].permute(0, 2, 1)
-    onehot = onehot.to(torch.float16).contiguous()
-    w = F.one_hot(codes[ad.long()], 6)[..., :5].T[None].to(torch.float16)
+    onehot = onehot.to(dtype).contiguous()
+    w = F.one_hot(codes[ad.long()], 6)[..., :5].T[None].to(dtype)
     w = w.contiguous()
     match = F.conv1d(onehot, w)[:, 0]
     if not torch.equal((alen - match.float()).to(mm.dtype), mm):
-        raise AssertionError("conv1d yardstick disagrees with the kernel")
+        raise AssertionError("conv1d yardstick (%s) disagrees with the "
+                             "kernel" % dtype)
     return cuda_ms(lambda: F.conv1d(onehot, w))
 
 
@@ -1030,6 +1044,16 @@ def _normalised(path):
     return data
 
 
+def require_same_outputs(got, want, phase, what):
+    """Four output paths against four: FASTQ and failed reads byte for
+    byte, JSON without its command line, normalised HTML."""
+    for g, w in zip(got, want):
+        if _normalised(g) != _normalised(w):
+            raise AssertionError("phase %s: %s differs from %s (%s)"
+                                 % (phase, os.path.basename(g),
+                                    os.path.basename(w), what))
+
+
 def check_report(out_fq, json_path, n_reads, n_bases, phase="5"):
     """The JSON report against the input and the trimmed FASTQ: every input
     read and base counted before filtering, every written record and base
@@ -1178,7 +1202,7 @@ def phase_cli(workdir, walls_only=False):
     _, evs = profile_cli(workdir, in_fq, path="headline")
     if not walls_only:
         no_index_add(evs)
-    return launches, torch.cuda.get_device_name(0)
+    return launches, torch.cuda.get_device_name(0), outs_g
 
 
 def no_index_add(evs):
@@ -1340,10 +1364,7 @@ def phase_config5(workdir, card):
         seqs = data.split(b"\n")[1::4]
         reads += len(seqs)
         bases += sum(map(len, seqs))
-    for g, c in zip(outs_g[2:], outs_c[2:]):
-        if _normalised(g) != _normalised(c):
-            raise AssertionError("%s differs between cuda and cpu runs"
-                                 % os.path.basename(g))
+    require_same_outputs(outs_g[2:], outs_c[2:], "5e", "cuda against cpu")
     with open(outs_g[2]) as f:
         rep = json.load(f)["summary"]
     got = (rep["before_filtering"]["total_reads"],
@@ -1412,11 +1433,7 @@ def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5",
     _, outs_c = run_cli(workdir, in_fq, "cpu", "cpu", flags=flags)
     log("phase %s: the same CLI on the cpu in %.1f s"
         % (phase, time.perf_counter() - t0))
-    for g, c in zip(outs_g, outs_c):
-        a, b = _normalised(g), _normalised(c)
-        if a != b:
-            raise AssertionError("%s differs between cuda and cpu runs"
-                                 % os.path.basename(g))
+    require_same_outputs(outs_g, outs_c, phase, "cuda against cpu")
     log("phase %s: whole-input outputs identical on cuda and cpu "
         "(fastq %d B, failed %d B, json %d B, html %d B)"
         % ((phase,) + tuple(os.path.getsize(p) for p in outs_g)))
@@ -1457,6 +1474,287 @@ def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None):
                                / max(e.count, 1), e.key[:60], e.count))
     return pwall, evs
 
+# the CUDA symbols of the headline's four kernels, as a trace names them
+HEADLINE_SYMBOLS = {"mismatch_scan": "mismatch_bits_kernel",
+                    "myers_verify": "myers_verify_kernel",
+                    "seed_scan": "seed_scan_kernel",
+                    "stat_batch": "stat_batch_kernel"}
+
+
+def phase_profile_flag(workdir, outs5):
+    """5g: the headline CLI on CUDA with --profile DIR: its launch counts,
+    one trace file in DIR holding device events of the four headline
+    kernels under their CUDA symbols, outputs equal to phase 5's run."""
+    import glob
+    in_fq, _ = headline_input(workdir)
+    trace_dir = os.path.join(workdir, "trace")
+    launches, outs, wall = run_counted(
+        workdir, in_fq, "profile_flag", HEADLINE + ["--profile", trace_dir],
+        "headline", "5g", label="the headline with --profile DIR")
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError("--profile wrote %s, not one trace file"
+                             % os.listdir(trace_dir))
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {n: sum(sym in k for k in kernels)
+             for n, sym in HEADLINE_SYMBOLS.items()}
+    log("phase 5g: trace %s, %d B, %d events, %d kernel events; by symbol "
+        "%s against launches %s" % (
+            os.path.basename(traces[0]), os.path.getsize(traces[0]),
+            len(events), len(kernels), json.dumps(found),
+            json.dumps(launches)))
+    missing = [n for n, c in found.items() if c == 0]
+    if missing:
+        raise AssertionError("the --profile trace holds no device event of "
+                             "%s" % missing)
+    require_same_outputs(outs, outs5, "5g", "--profile changed the output")
+    log("phase 5g: outputs identical to phase 5's run (wall %.3f s with the "
+        "profiler on)" % wall)
+
+
+def _package_copy(root):
+    """The package's sources under root, without a built library."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copytree(os.path.join(here, "fastplong_tpu_torch"),
+                    os.path.join(root, "fastplong_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_kernels", "*.so",
+                                                  "__pycache__"))
+    return root
+
+
+# a fresh process's first job, timed by its parts (phase 5h)
+FRESH_PROCESS = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+from fastplong_tpu_torch.main import main
+from fastplong_tpu_torch.ops import cuda_lib
+cuda_lib.lib()
+t3 = time.perf_counter()
+rc = main(["fastplong"] + sys.argv[1:])
+torch.cuda.synchronize()
+t4 = time.perf_counter()
+print(json.dumps({"import_torch": t1 - t0, "cuda_start": t2 - t1,
+                  "import_port_load_library": t3 - t2, "first_job": t4 - t3,
+                  "rc": rc}))
+"""
+
+
+def phase_prewarm(workdir):
+    """5h, cold start.  First `python -m fastplong_tpu_torch.main
+    --prewarm` with the headline adapter flags, a subprocess on cuda in an
+    empty working directory, from a copy of the package with no built
+    library, as a first deployment starts: rc 0, the directory left empty,
+    the kernel library built by its cold pass, its cold and warm pass
+    seconds.  Then a fresh process from the checkout, whose library phase
+    2 built, as each later job starts: its seconds to import torch, to
+    start CUDA, to import the port and load the library, and for its
+    first CLI run (phase 5's 300-read warm-up input), with that run's
+    timer dump."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cold = _package_copy(os.path.join(workdir, "unbuilt"))
+    cwd = tempfile.mkdtemp(dir=workdir)
+    env = dict(os.environ, PYTHONPATH=cold, FASTPLONG_TORCH_DEVICE="cuda")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "fastplong_tpu_torch.main", "--prewarm"]
+        + HEADLINE, cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in r.stderr.splitlines() if ln.startswith("prewarm: ")]
+    left = os.listdir(cwd)
+    if r.returncode != 0 or len(lines) != 1 or left:
+        raise AssertionError("--prewarm: rc %d, left %s in its directory:\n%s"
+                             % (r.returncode, left, r.stderr[-3000:]))
+    kdir = os.path.join(cold, "fastplong_tpu_torch", "_kernels")
+    built = [p for p in os.listdir(kdir) if p.endswith(".ptxas.txt")]
+    if len(built) != 1:
+        raise AssertionError("--prewarm built no kernel library: %s" % built)
+    with open(os.path.join(kdir, built[0])) as f:
+        build = f.readline().strip()
+    log("phase 5h: --prewarm with the library absent: %s; process wall "
+        "%.1f s; its cold pass built the library (%s)"
+        % (lines[0], wall, build))
+
+    dump = os.path.join(workdir, "timer_fresh.json")
+    out = os.path.join(workdir, "fresh")
+    env = dict(os.environ, PYTHONPATH=here, FASTPLONG_TORCH_DEVICE="cuda",
+               FASTPLONG_TIMER_DUMP=dump)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", FRESH_PROCESS, "-i",
+         os.path.join(workdir, "small.fq"), "-o", out + ".fq", "-j",
+         out + ".json", "-h", out + ".html"] + HEADLINE,
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError("a fresh process exited %d:\n%s"
+                             % (r.returncode, r.stderr[-3000:]))
+    parts = json.loads(r.stdout.splitlines()[-1])
+    with open(dump) as f:
+        timing = json.load(f)
+    log("phase 5h: a fresh process with the library built, its first job "
+        "(300 reads): process wall %.2f s; seconds %s; the job's %s"
+        % (wall, json.dumps(parts), json.dumps(timing)))
+
+
+def _write_records(path, lines):
+    import gzip
+    if path.endswith(".gz"):
+        with gzip.open(path, "wb", compresslevel=1) as f:
+            f.write(b"".join(lines))
+    else:
+        with open(path, "wb") as f:
+            f.write(b"".join(lines))
+
+
+def phase_parallel(workdir):
+    """5i: fastplong_tpu_torch.parallel.main in process over a folder of
+    the headline input cut, record-aligned, into four files (one gzipped),
+    an Undetermined_S0.fq and a non-FASTQ file, with the headline flags:
+    exactly four files processed, the four headline kernels launched,
+    each decompressed clean output equal to a single CUDA CLI run of that
+    file, overall.html naming the four, their summed pre-filter reads and
+    bases equal to the input's."""
+    import gzip
+    import io
+    from fastplong_tpu_torch import parallel
+    in_fq, nbases = headline_input(workdir)
+    folder = os.path.join(workdir, "folder")
+    outdir = os.path.join(workdir, "folder_out")
+    os.makedirs(folder)
+    with open(in_fq, "rb") as f:
+        lines = f.readlines()
+    per = len(lines) // 4 // 4 * 4
+    names = ["part1.fq", "part2.fq.gz", "part3.fastq", "part4.fq"]
+    for k, name in enumerate(names):
+        _write_records(os.path.join(folder, name),
+                       lines[k * per:(k + 1) * per if k < 3 else None])
+    _write_records(os.path.join(folder, "Undetermined_S0.fq"), lines[:400])
+    with open(os.path.join(folder, "samplesheet.csv"), "w") as f:
+        f.write("sample,file\npart1,part1.fq\n")
+    wrappers = kernel_wrappers(tuple(HEADLINE_SYMBOLS))
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "parallel.log"), "w") as err, \
+            contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = parallel.main(["-i", folder, "-o", outdir,
+                            "--args=" + " ".join(HEADLINE)])
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    processed = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("Processing: ")]
+    log("phase 5i: parallel.py over %d files in %.3f s (rc %d); kernel "
+        "launches %s" % (len(processed), wall, rc, json.dumps(launches)))
+    if rc != 0 or len(processed) != 4:
+        raise AssertionError("parallel.py processed %d files, rc %d:\n%s"
+                             % (len(processed), rc, out.getvalue()[-2000:]))
+    if not all(launches.values()):
+        raise AssertionError("parallel.py ran without kernels: %s"
+                             % launches)
+    reads = bases = 0
+    for k, name in enumerate(names):
+        _, outs = run_cli(workdir, os.path.join(folder, name),
+                          "single%d" % k, "cuda")
+        base = name.split(".")[0]
+        with gzip.open(os.path.join(outdir, base + ".clean.fastq.gz")) as g, \
+                open(outs[0], "rb") as s1:
+            if g.read() != s1.read():
+                raise AssertionError("parallel.py's output of %s differs "
+                                     "from a single CLI run" % name)
+        with open(os.path.join(outdir, name + ".json")) as f:
+            rep = json.load(f)["summary"]["before_filtering"]
+        reads += rep["total_reads"]
+        bases += rep["total_bases"]
+    with open(os.path.join(outdir, "overall.html")) as f:
+        html = f.read()
+    if not all(n in html for n in names) or "Undetermined" in html:
+        raise AssertionError("overall.html does not list the four files")
+    if (reads, bases) != (N_READS, nbases):
+        raise AssertionError("parallel.py's reports count %d reads, %d "
+                             "bases; the input has %d, %d"
+                             % (reads, bases, N_READS, nbases))
+    log("phase 5i: four clean outputs identical to single CLI runs; "
+        "overall.html lists the four; %d reads, %d bases before filtering, "
+        "as in the input" % (reads, bases))
+
+
+def phase_num_hosts(workdir, outs5):
+    """5j: --num_hosts 2 as two subprocesses sharing the card, joined by
+    FASTPLONG_COORDINATOR on a free local port, with the headline flags:
+    both exit 0 within the script's timeout; their outputs and failed
+    reads, each pair concatenated, equal phase 5's; host 0's merged JSON
+    and the offline merge_reports JSON equal phase 5's JSON."""
+    import shutil
+    import socket
+    from fastplong_tpu_torch.merge_reports import main as merge_main
+    here = os.path.dirname(os.path.abspath(__file__))
+    in_fq, _ = headline_input(workdir)
+    d = os.path.join(workdir, "hosts")
+    os.makedirs(d)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    timeout = 300
+    env = dict(os.environ, PYTHONPATH=here, FASTPLONG_TORCH_DEVICE="cuda",
+               FASTPLONG_COORDINATOR="127.0.0.1:%d" % port,
+               FASTPLONG_COORDINATOR_TIMEOUT=str(timeout))
+    outs = [os.path.join(d, "m" + s)
+            for s in (".fq", ".failed.fq", ".json", ".html")]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fastplong_tpu_torch.main", "-i", in_fq,
+         "-o", outs[0], "--failed_out", outs[1], "-j", outs[2], "-h",
+         outs[3], "--num_hosts", "2", "--host_index", str(i)] + HEADLINE,
+        cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for i in (0, 1)]
+    try:
+        results = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, (p, (_, err)) in enumerate(zip(procs, results)):
+        if p.returncode != 0:
+            raise AssertionError("host %d exited %d:\n%s" % (
+                i, p.returncode, err.decode(errors="replace")[-3000:]))
+    log("phase 5j: two host processes on one card, both rc 0 in %.1f s"
+        % wall)
+    for got, want in ((outs[0], outs5[0]), (outs[1], outs5[1])):
+        cat = b""
+        for i in (0, 1):
+            with open(os.path.join(d, "%04d.%s" % (i + 1,
+                                                   os.path.basename(got))),
+                      "rb") as f:
+                cat += f.read()
+        with open(want, "rb") as f:
+            if cat != f.read():
+                raise AssertionError("the two hosts' %s differ from phase "
+                                     "5's" % os.path.basename(got))
+    require_same_outputs(outs[2:3], outs5[2:3], "5j", "host 0's merged "
+                         "report")
+    shutil.copy(outs[2], outs[2] + ".from_gloo")
+    with open(os.path.join(workdir, "merge.log"), "w") as err, \
+            contextlib.redirect_stderr(err):
+        rc = merge_main(["merge", outs[2] + ".part0", outs[2] + ".part1"])
+    if rc != 0:
+        raise AssertionError("merge_reports exited %d" % rc)
+    require_same_outputs(outs[2:3], outs5[2:3], "5j", "the offline merge")
+    log("phase 5j: shards concatenated equal phase 5's output and failed "
+        "reads; the gloo-merged and the offline-merged JSON equal phase "
+        "5's")
+
 
 def main():
     try:
@@ -1484,14 +1782,14 @@ def main():
         card = phase_device()
         phase_build()
         if walls_only:
-            launches, kind = phase_cli(workdir, walls_only=True)
+            launches, kind, _ = phase_cli(workdir, walls_only=True)
             print(json.dumps({"walls_of": here, "launches": launches}))
             return 0
         rec = phase_kernels(headline_input(workdir)[0])
         phase_step()
         phase_step(HEADLINE + ["-b", "-N"])
         phase_step(HEADLINE + ["-N"])
-        launches, kind = phase_cli(workdir)
+        launches, kind, outs5 = phase_cli(workdir)
         bm, lowq_fq, lowq_bases = phase_break_mask(workdir)
         launches["regions"] = bm["regions"]
         phase_mask(workdir, lowq_fq, lowq_bases)
@@ -1499,6 +1797,14 @@ def main():
         phase_config5(workdir, card)
         launches["myers_blockscan"] = phase_long_adapter(
             workdir)["myers_blockscan"]
+        for phase, fn, args in (("5g", phase_profile_flag, (outs5,)),
+                                ("5h", phase_prewarm, ()),
+                                ("5i", phase_parallel, ()),
+                                ("5j", phase_num_hosts, (outs5,))):
+            t0 = time.perf_counter()
+            fn(workdir, *args)
+            log("phase %s: done in %.1f s" % (phase, time.perf_counter()
+                                               - t0))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     from fastplong_tpu_torch.ops.cuda_lib import CSRC

@@ -9,9 +9,13 @@ the block-scan Myers form for adapters longer than 640 bp); the host
 layer (FASTQ I/O, batching, reports) is the same as the JAX package's.
 Public entry points:
 
-    from fastplong_tpu_torch.main import main          # CLI
+    from fastplong_tpu_torch.main import main          # CLI (also --profile,
+                                                       # --prewarm, --num_hosts)
     from fastplong_tpu_torch.config import Options     # programmatic config
     from fastplong_tpu_torch.processor import process  # run a configured job
+    from fastplong_tpu_torch.parallel import main      # every FASTQ of a folder
+    from fastplong_tpu_torch.merge_reports import main # offline --num_hosts merge
+    from fastplong_tpu_torch.models import Read, ReadPair, Sequence
 
 Device rule: every entry point runs on CUDA unless the caller asks for the
 CPU (`device="cpu"`, or FASTPLONG_TORCH_DEVICE=cpu for the CLI).  There is
@@ -21,6 +25,7 @@ no silent move to the CPU: asking for CUDA without a card is an error.
 import os
 
 from .common import VERSION
+from .models import Read, ReadPair, Sequence
 
 __version__ = VERSION
 

@@ -3,7 +3,8 @@ with the reference fastplong (src/main.cpp:29-103) and with
 fastplong_tpu.main, whose parser this copies.
 
 Runs on CUDA unless FASTPLONG_TORCH_DEVICE=cpu.  Flags whose code is not
-ported yet stop with an error naming the ROADMAP item that ports them.
+ported yet (--devices above 1, FASTPLONG_DAEMON=1) stop with an error naming
+the ROADMAP item that ports them.
 """
 
 import argparse
@@ -178,8 +179,10 @@ def build_parser():
       help="run the device step data-parallel over this many accelerator "
            "devices (extension; only 1 is ported), default is 1")
     a("--profile", default="",
-      help="write a profiler trace of the run to this directory "
-           "(extension; not ported yet), disabled by default")
+      help="write a torch.profiler trace of the run (host ops, and the "
+           "card's kernels on CUDA) into this directory, one "
+           "*.pt.trace.json file that TensorBoard or Perfetto opens "
+           "(extension), disabled by default")
     a("--stats_backend", choices=["device", "host", "auto"],
       default=os.environ.get("FASTPLONG_STATS", "auto"),
       help="where run statistics accumulate (extension): "
@@ -190,7 +193,11 @@ def build_parser():
            "FASTPLONG_STATS)")
     a("--num_hosts", type=int, default=1,
       help="shard the input file across this many hosts by record-aligned "
-           "byte ranges (extension; not ported yet), default 1")
+           "byte ranges (extension): each host writes 000N.-prefixed "
+           "outputs and a stats partial; with FASTPLONG_COORDINATOR=host:port "
+           "(host 0's address) host 0 also writes the merged reports, else "
+           "merge the partials with python -m "
+           "fastplong_tpu_torch.merge_reports. Default 1")
     a("--host_index", type=int, default=0,
       help="0-based index of this host's shard when --num_hosts > 1")
     # splitting
@@ -209,8 +216,10 @@ def build_parser():
            "is 4, so the filename will be padded as 0001.xxx, 0 to disable "
            "padding")
     a("--prewarm", action="store_true",
-      help="warm this configuration and exit (extension; not ported "
-           "yet)")
+      help="run this configuration twice over a small synthetic input in "
+           "a temporary directory and exit (extension); on a card the "
+           "first pass builds the CUDA kernel library if it is absent, so "
+           "a deployment pays nvcc here rather than in its first job")
     return p
 
 
@@ -336,25 +345,120 @@ def options_from_args(args, argv):
     return opt
 
 
-def unsupported(opt, argv):
+def unsupported(opt):
     """The first flag of this run whose code is not ported yet, as an error
     message naming its ROADMAP item; None when the run is supported."""
     if os.environ.get("FASTPLONG_DAEMON") == "1":
-        return "FASTPLONG_DAEMON=1 is not ported yet (ROADMAP A.19)"
-    if "--prewarm" in argv[1:]:
-        return "--prewarm is not ported yet (ROADMAP A.19)"
-    if opt.profile_dir:
-        return "--profile is not ported yet (ROADMAP A.19)"
+        return "FASTPLONG_DAEMON=1 is not ported yet (ROADMAP A.19b)"
     if opt.devices > 1:
         return "--devices above 1 is not ported yet (ROADMAP A.17)"
-    if opt.num_hosts > 1:
-        return "--num_hosts above 1 is not ported yet (ROADMAP A.18)"
     return None
+
+
+def _run_prewarm(argv):
+    """--prewarm: run the given configuration twice over a small synthetic
+    input (adapters planted so explicit-adapter configs exercise their
+    exact kernel chain).  On a card the first pass builds the kernel
+    library if it is absent (ops/cuda_lib.py), so the next real invocation
+    starts with it built.  Outputs go to a temporary directory."""
+    import shutil
+    import tempfile
+    args = [a for a in argv[1:] if a != "--prewarm"]
+    # strip any I/O options the caller passed; prewarm supplies its own
+    io_opts = {"-i", "--in", "-o", "--out", "--failed_out", "-j",
+               "--json", "-h", "--html"}
+    cleaned, skip = [], False
+    start, end = "", ""
+    for i, a in enumerate(args):
+        if skip:
+            skip = False
+            continue
+        if a in io_opts:
+            skip = True
+            continue
+        if a.split("=", 1)[0] in io_opts:
+            continue
+        if a in ("-s", "--start_adapter") and i + 1 < len(args):
+            start = args[i + 1]
+        if a in ("-e", "--end_adapter") and i + 1 < len(args):
+            end = args[i + 1]
+        cleaned.append(a)
+    if start and start != "auto" and (not end or end == "auto"):
+        end = reverse_complement(start)
+    d = tempfile.mkdtemp(prefix="fastplong_prewarm_")
+    try:
+        import numpy as np
+        rng = np.random.default_rng(5)
+        fq = os.path.join(d, "warm.fq")
+        bases = np.frombuffer(b"ACGT", np.uint8)
+        with open(fq, "wb") as f:
+            for i in range(2000):
+                n = max(60, int(rng.gamma(3.0, 700.0)))
+                seq = rng.choice(bases, size=n).tobytes()
+                if start and start != "auto" and rng.random() < 0.8:
+                    seq = start.encode() + seq
+                if end and end != "auto" and rng.random() < 0.8:
+                    seq = seq + end.encode()
+                q = rng.integers(38, 73, size=len(seq),
+                                 dtype=np.uint8).tobytes()
+                f.write(b"@w%d\n" % i + seq + b"\n+\n" + q + b"\n")
+        base = ["fastplong", "-i", fq, "-o", os.path.join(d, "out.fq"),
+                "-j", os.path.join(d, "r.json"),
+                "-h", os.path.join(d, "r.html")] + cleaned
+        t0 = time.time()
+        rc = main(base) or 0
+        t1 = time.time()
+        if rc == 0:
+            rc = main(base) or 0
+        t2 = time.time()
+        sys.stderr.write(
+            "prewarm: cold pass %.1fs, warm pass %.1fs (rc=%d)\n"
+            % (t1 - t0, t2 - t1, rc))
+        return rc
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _run_multihost(opt, process, device):
+    """Single-file multi-host shard run (see multihost.py)."""
+    from . import multihost
+    if opt.host_index < 0 or opt.host_index >= opt.num_hosts:
+        error_exit("--host_index must be in [0, --num_hosts)")
+    if opt.input_from_stdin or opt.in_file in ("/dev/stdin", "-"):
+        error_exit("--num_hosts requires a seekable plain input file")
+    is_gz = opt.in_file.endswith(".gz")
+    if not is_gz:
+        try:
+            with open(opt.in_file, "rb") as f:
+                is_gz = f.read(2) == b"\x1f\x8b"
+        except OSError:
+            error_exit("cannot read the input file: " + opt.in_file)
+    if is_gz:
+        error_exit("--num_hosts cannot byte-shard gzip input (no random "
+                   "access); use parallel.py file sharding instead")
+    if opt.split.enabled:
+        error_exit("--split cannot be combined with --num_hosts")
+    distributed = multihost.distributed_init_from_env(opt)
+    opt.byte_range = multihost.compute_range(
+        opt.in_file, opt.num_hosts, opt.host_index)
+    opt.json_file_base = opt.json_file
+    opt.html_file_base = opt.html_file
+    for attr in ("out", "failed_out", "json_file", "html_file"):
+        setattr(opt, attr,
+                multihost.host_prefixed(getattr(opt, attr), opt.host_index))
+    pre, post, fr = process(opt, device)
+    part = "%s.part%d" % (opt.json_file_base, opt.host_index)
+    multihost.save_partial(part, opt, pre, post, fr)
+    sys.stderr.write("stats partial: %s\n" % part)
+    if distributed:
+        multihost.finish_distributed(opt, pre, post, fr)
 
 
 def main(argv=None):
     if argv is None:
         argv = sys.argv
+    if len(argv) > 1 and "--prewarm" in argv[1:]:
+        return _run_prewarm(argv)
     if len(argv) == 1:
         sys.stderr.write(
             "fastplong: ultra-fast FASTQ preprocessing and quality control "
@@ -363,7 +467,7 @@ def main(argv=None):
         return 0
     args = build_parser().parse_args(argv[1:])
     opt = options_from_args(args, argv)
-    msg = unsupported(opt, argv)
+    msg = unsupported(opt)
     if msg:
         error_exit(msg)
     try:
@@ -373,7 +477,10 @@ def main(argv=None):
 
     t1 = time.time()
     from .processor import process
-    process(opt, device)
+    if opt.num_hosts > 1:
+        _run_multihost(opt, process, device)
+    else:
+        process(opt, device)
     t2 = time.time()
 
     sys.stderr.write("\nJSON report: %s\n" % opt.json_file)

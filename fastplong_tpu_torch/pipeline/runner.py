@@ -165,7 +165,7 @@ class SingleEndRunner:
                     buffer_size=opt.writer_buffer_size)
         reader = FastqStreamReader(
             "/dev/stdin" if opt.input_from_stdin and not opt.in_file
-            else opt.in_file)
+            else opt.in_file, byte_range=opt.byte_range)
         if opt.verbose:
             loginfo("start to load data")
         timer = self.timer

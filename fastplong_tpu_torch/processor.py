@@ -17,6 +17,21 @@ from .report.html_report import report_html
 from .report.json_report import report_json
 
 
+def _profiled_run(runner, trace_dir):
+    """--profile DIR: runner.run() under torch.profiler (host ops, and the
+    card's kernels when the run is on CUDA), written into DIR as one
+    <host>_<pid>.<ms>.pt.trace.json that TensorBoard's PyTorch profiler
+    plugin and Perfetto open."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if runner.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        return runner.run()
+
+
 def process(opt, device=None):
     """Run one configured job; device defaults to FASTPLONG_TORCH_DEVICE,
     else cuda (see fastplong_tpu_torch.resolve_device)."""
@@ -59,7 +74,11 @@ def process(opt, device=None):
     runner = SingleEndRunner(opt, device)
     phases["runner_init"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pre_stats, post_stats, filter_result = runner.run()
+    if opt.profile_dir:
+        pre_stats, post_stats, filter_result = _profiled_run(
+            runner, opt.profile_dir)
+    else:
+        pre_stats, post_stats, filter_result = runner.run()
     phases["runner_run"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 

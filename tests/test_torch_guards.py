@@ -111,10 +111,7 @@ def test_step_without_card_fails(tmp_path, no_card):
 
 UNSUPPORTED = [
     ("devices", ["--devices", "2"], {}, "A.17"),
-    ("num_hosts", ["--num_hosts", "2"], {}, "A.18"),
-    ("prewarm", ["--prewarm"], {}, "A.19"),
-    ("profile", ["--profile", "prof"], {}, "A.19"),
-    ("daemon", [], {"FASTPLONG_DAEMON": "1"}, "A.19"),
+    ("daemon", [], {"FASTPLONG_DAEMON": "1"}, "A.19b"),
 ]
 
 
