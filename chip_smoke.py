@@ -43,7 +43,13 @@ headline kernels' device events by CUDA symbol; outputs unchanged),
 library, and a fresh process timed by its parts (5h, cold start),
 parallel.py in process over the headline input cut into four files (5i),
 and --num_hosts 2 as two processes sharing the card over a gloo group,
-its shards, merged report and offline merge (5j).
+its shards, merged report and offline merge (5j).  Then the warm daemon
+(5k: `import torch` timed twice in fresh processes; CLI clients with
+FASTPLONG_DAEMON=1, cold and warm over 300 reads, the headline over the
+64-Mbase input and config 4, each job's outputs, launches and
+"Detected:" lines held to the in-process runs, no client importing
+torch, the daemon holding a CUDA context until shutdown_daemon() ends
+it) and `python -m fastplong_tpu_torch.edbench` on the card (5l).
 
     python3 chip_smoke.py --walls
 
@@ -1603,6 +1609,7 @@ def phase_prewarm(workdir):
     log("phase 5h: a fresh process with the library built, its first job "
         "(300 reads): process wall %.2f s; seconds %s; the job's %s"
         % (wall, json.dumps(parts), json.dumps(timing)))
+    return wall
 
 
 def _write_records(path, lines):
@@ -1756,6 +1763,230 @@ def phase_num_hosts(workdir, outs5):
         "5's")
 
 
+# ------------------------------------------------------------- 5k and 5l
+
+def _import_torch_seconds():
+    r = subprocess.run(
+        [sys.executable, "-c", "import time; t0 = time.perf_counter(); "
+         "import torch; print(time.perf_counter() - t0)"],
+        capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError("import torch failed:\n%s" % r.stderr[-3000:])
+    return float(r.stdout.split()[-1])
+
+
+def _compute_apps():
+    """The card's compute processes as nvidia-smi lists them (pid, used
+    memory): the pids are those of nvidia-smi's pid namespace."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        raise AssertionError("nvidia-smi --query-compute-apps failed: %s"
+                             % r.stderr.strip())
+    return [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]
+
+
+# an import of the torch package in `python -X importtime` output
+_TORCH_IMPORT = re.compile(r"\|\s+torch(\.|\s*$)")
+
+
+def _daemon_client(workdir, env, in_fq, tag, flags):
+    """One `python -X importtime -m fastplong_tpu_torch.main` client with
+    FASTPLONG_DAEMON=1; returns (wall, output paths, the job's timer dump,
+    the job's stderr lines).  Fails if the client ran the job itself or
+    imported torch."""
+    outs = [os.path.join(workdir, tag + s)
+            for s in (".fq", ".failed.fq", ".json", ".html")]
+    dump = os.path.join(workdir, "timer_%s.json" % tag)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "fastplong_tpu_torch.main",
+         "-i", in_fq, "-o", outs[0], "--failed_out", outs[1], "-j", outs[2],
+         "-h", outs[3]] + flags, cwd=workdir, capture_output=True,
+        text=True, timeout=900, env=dict(env, FASTPLONG_TIMER_DUMP=dump))
+    wall = time.perf_counter() - t0
+    lines = r.stderr.splitlines()
+    imports = [ln for ln in lines if ln.startswith("import time:")]
+    job_err = [ln for ln in lines if not ln.startswith("import time:")]
+    if r.returncode != 0:
+        raise AssertionError("daemon client %s exited %d:\n%s"
+                             % (tag, r.returncode, "\n".join(job_err)[-3000:]))
+    if any("daemon unavailable" in ln for ln in job_err):
+        raise AssertionError("client %s ran its job in process:\n%s"
+                             % (tag, "\n".join(job_err)[-3000:]))
+    torch_lines = [ln for ln in imports if _TORCH_IMPORT.search(ln)]
+    if torch_lines or not imports:
+        raise AssertionError("client %s imported torch (%s) or printed no "
+                             "import times" % (tag, torch_lines[:3]))
+    with open(dump) as f:
+        timing = json.load(f)
+    return wall, outs, timing, job_err
+
+
+def _daemon_jobs(ddir):
+    """The job lines of the daemon's log."""
+    with open(os.path.join(ddir, "torch_daemon.log")) as f:
+        return [json.loads(ln) for ln in f if ln.startswith('{"job"')]
+
+
+def _check_job_launches(timing, path, phase):
+    """The launches a daemon job made, from its timer dump (the counters
+    as they stood after the job, less as they stood before it), against
+    its step calls."""
+    launches = {n: timing["launches"][n] for n in path_kernels(path)}
+    log("phase %s:   the job's step calls %d, kernel launches %s"
+        % (phase, timing["step_calls"], json.dumps(launches)))
+    check_launches(launches, timing["step_calls"], path)
+
+
+def phase_daemon(workdir, card, outs5, fresh_wall):
+    """5k, the warm daemon (FASTPLONG_DAEMON=1) on cuda, each client a
+    subprocess of `python -X importtime -m fastplong_tpu_torch.main` with
+    its socket directory in the workdir.  First `import torch` twice in
+    fresh processes.  Then a cold client over phase 5's 300-read input
+    (it spawns the daemon), a warm one over the same input timed by its
+    parts (the client's own share; the job as the daemon timed it) with
+    outputs equal to the cold one's and to phase 5's in-process run of
+    that input, a warm headline client over the 64-Mbase input (outputs
+    equal to phase 5's, launches per step as there), and a config-4 client
+    ("Detected:" lines equal to phase 5d's).  No client may import torch or
+    run its job itself; the daemon must hold a CUDA context and be gone
+    after shutdown_daemon()."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ddir = os.path.join(workdir, "daemon")
+    os.makedirs(ddir)
+    env = dict(os.environ, PYTHONPATH=here, FASTPLONG_TORCH_DEVICE="cuda",
+               FASTPLONG_DAEMON="1", FASTPLONG_DAEMON_DIR=ddir)
+    imports = [_import_torch_seconds() for _ in range(2)]
+    log("phase 5k: import torch in a fresh process, twice in a row: %.3f s, "
+        "%.3f s; %s" % (imports[0], imports[1], card))
+    apps0 = _compute_apps()
+    small = os.path.join(workdir, "small.fq")
+    old = os.environ.get("FASTPLONG_DAEMON_DIR")
+    os.environ["FASTPLONG_DAEMON_DIR"] = ddir
+    from fastplong_tpu_torch import daemon
+    pid = None
+    try:
+        cold, outs_cold, _, _ = _daemon_client(workdir, env, small,
+                                               "d_cold", HEADLINE)
+        conn, hello = daemon._connect()
+        conn.close()
+        pid = hello["pid"]
+        warm, outs_warm, timing, _ = _daemon_client(workdir, env, small,
+                                                    "d_warm", HEADLINE)
+        job = _daemon_jobs(ddir)[-1]["seconds"]
+        require_same_outputs(outs_warm, outs_cold, "5k",
+                             "the warm job against the cold one")
+        require_same_outputs(outs_warm, [os.path.join(workdir, "warm" + s)
+                                         for s in (".fq", ".failed.fq",
+                                                   ".json", ".html")],
+                             "5k", "the daemon against phase 5's in-process "
+                             "run of the 300 reads")
+        log("phase 5k: 300 reads, headline flags: cold client (spawns the "
+            "daemon) %.3f s; warm client %.3f s = the client's own %.3f s + "
+            "the job in the daemon %.3f s (a fresh process in 5h: %.2f s); "
+            "%s" % (cold, warm, warm - job, job, fresh_wall, card))
+        log("phase 5k:   the warm job's seconds %s" % json.dumps(timing))
+
+        in_fq, nbases = headline_input(workdir)
+        wall, outs, timing, _ = _daemon_client(workdir, env, in_fq,
+                                               "d_headline", HEADLINE)
+        job = _daemon_jobs(ddir)[-1]["seconds"]
+        require_same_outputs(outs, outs5, "5k", "the daemon's headline job "
+                             "against phase 5's run")
+        log("phase 5k: headline over %d bases through the warm daemon: "
+            "client %.3f s (%.2f Mbases/s) = the client's own %.3f s + the "
+            "job %.3f s; outputs identical to phase 5's; %s"
+            % (nbases, wall, nbases / wall / 1e6, wall - job, job, card))
+        _check_job_launches(timing, "headline", "5k")
+
+        wall, outs, timing, err = _daemon_client(workdir, env, in_fq,
+                                                 "d_c4", CONFIG4)
+        got = [ln for ln in err if ln.startswith(
+            ("Detected:", "Not detected", "Found possible"))]
+        want = _detection_lines(workdir, "c4_cuda")
+        if got != want:
+            raise AssertionError("phase 5k: the daemon's detection %s, phase "
+                                 "5d's %s" % (got, want))
+        require_same_outputs(outs, [os.path.join(workdir, "c4_cuda" + s)
+                                    for s in (".fq", ".failed.fq", ".json",
+                                              ".html")],
+                             "5k", "the daemon's config-4 job against 5d's")
+        log("phase 5k: config 4 through the daemon: client %.3f s; %s; "
+            "outputs identical to phase 5d's" % (wall, " | ".join(got)))
+        _check_job_launches(timing, "autodetect", "5k")
+
+        # the daemon's CUDA context.  nvidia-smi may list processes under
+        # another pid namespace than this one's, so the daemon's pid is
+        # looked for there and, failing that, its process must have the
+        # CUDA driver mapped and the card one more compute process
+        apps = _compute_apps()
+        with open("/proc/%d/maps" % pid) as f:
+            has_driver = "libcuda.so" in f.read()
+        pids = [a.split(",")[0].strip() for a in apps]
+        if not (str(pid) in pids
+                or (has_driver and len(apps) == len(apps0) + 1)):
+            raise AssertionError(
+                "phase 5k: no CUDA context of the daemon (pid %d, libcuda "
+                "mapped: %s): compute apps %s before it, %s with it"
+                % (pid, has_driver, apps0, apps))
+        log("phase 5k: the daemon (pid %d) holds a CUDA context: libcuda "
+            "mapped %s; compute apps before it %s, with it %s"
+            % (pid, has_driver, apps0, apps))
+        if not daemon.shutdown_daemon():
+            raise AssertionError("phase 5k: the daemon did not acknowledge "
+                                 "its shutdown")
+        deadline = time.time() + 60
+        while time.time() < deadline and os.path.exists("/proc/%d" % pid):
+            time.sleep(0.2)
+        if os.path.exists("/proc/%d" % pid):
+            raise AssertionError("phase 5k: the daemon (pid %d) outlived its "
+                                 "shutdown" % pid)
+        pid = None
+        jobs = _daemon_jobs(ddir)
+        if [j["rc"] for j in jobs] != [0] * 4:
+            raise AssertionError("phase 5k: the daemon's jobs %s" % jobs)
+        log("phase 5k: 4 jobs, all rc 0; the daemon exited on shutdown; "
+            "compute apps now %s" % _compute_apps())
+    finally:
+        if pid is not None and os.path.exists("/proc/%d" % pid):
+            daemon.shutdown_daemon()
+            time.sleep(2)
+            if os.path.exists("/proc/%d" % pid):
+                os.kill(pid, 9)
+        if old is None:
+            os.environ.pop("FASTPLONG_DAEMON_DIR", None)
+        else:
+            os.environ["FASTPLONG_DAEMON_DIR"] = old
+
+
+_EDBENCH_LINE = re.compile(r"^test (\d+) edit_distance calls, takes (\d+) ms "
+                           r"\((\d+\.\d) M calls/s\)$")
+
+
+def phase_edbench(workdir, card):
+    """5l: `python -m fastplong_tpu_torch.edbench` on cuda: rc 0, three
+    timing lines and the pass line, its M calls/s beside the card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, FASTPLONG_TORCH_DEVICE="cuda")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "fastplong_tpu_torch.edbench"],
+                       cwd=workdir, env=env, capture_output=True, text=True,
+                       timeout=300)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    timed = [_EDBENCH_LINE.match(ln) for ln in lines[:-1]]
+    if (r.returncode != 0 or len(lines) != 4 or not all(timed)
+            or lines[-1] != "all edit_distance vectors passed"):
+        raise AssertionError("edbench: rc %d\n%s\n%s" % (
+            r.returncode, r.stdout[-2000:], r.stderr[-2000:]))
+    for ln in lines:
+        log("phase 5l: " + ln)
+    log("phase 5l: edbench %s M calls/s for distances 0, 1, 90 (process "
+        "%.1f s); %s" % (" / ".join(m.group(3) for m in timed), wall, card))
+
+
 def main():
     try:
         import torch
@@ -1797,12 +2028,16 @@ def main():
         phase_config5(workdir, card)
         launches["myers_blockscan"] = phase_long_adapter(
             workdir)["myers_blockscan"]
-        for phase, fn, args in (("5g", phase_profile_flag, (outs5,)),
-                                ("5h", phase_prewarm, ()),
-                                ("5i", phase_parallel, ()),
-                                ("5j", phase_num_hosts, (outs5,))):
+        done = {}
+        for phase, fn, args in (
+                ("5g", phase_profile_flag, lambda: (outs5,)),
+                ("5h", phase_prewarm, tuple),
+                ("5i", phase_parallel, tuple),
+                ("5j", phase_num_hosts, lambda: (outs5,)),
+                ("5k", phase_daemon, lambda: (card, outs5, done["5h"])),
+                ("5l", phase_edbench, lambda: (card,))):
             t0 = time.perf_counter()
-            fn(workdir, *args)
+            done[phase] = fn(workdir, *args())
             log("phase %s: done in %.1f s" % (phase, time.perf_counter()
                                                - t0))
     finally:

@@ -16,6 +16,12 @@ Public entry points:
     from fastplong_tpu_torch.parallel import main      # every FASTQ of a folder
     from fastplong_tpu_torch.merge_reports import main # offline --num_hosts merge
     from fastplong_tpu_torch.models import Read, ReadPair, Sequence
+    from fastplong_tpu_torch.daemon import serve       # warm daemon
+                                                       # (FASTPLONG_DAEMON=1)
+    from fastplong_tpu_torch.edbench import main       # Myers self-benchmark
+
+Every CLI flag of fastplong_tpu.main is served except --devices above 1
+(ROADMAP A.17), which stops with an error naming that item.
 
 Device rule: every entry point runs on CUDA unless the caller asks for the
 CPU (`device="cpu"`, or FASTPLONG_TORCH_DEVICE=cpu for the CLI).  There is

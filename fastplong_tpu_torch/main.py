@@ -2,9 +2,11 @@
 with the reference fastplong (src/main.cpp:29-103) and with
 fastplong_tpu.main, whose parser this copies.
 
-Runs on CUDA unless FASTPLONG_TORCH_DEVICE=cpu.  Flags whose code is not
-ported yet (--devices above 1, FASTPLONG_DAEMON=1) stop with an error naming
-the ROADMAP item that ports them.
+Runs on CUDA unless FASTPLONG_TORCH_DEVICE=cpu.  With FASTPLONG_DAEMON=1
+the job goes to the resident daemon (daemon.py), which runs it on the
+device its client asked for.  The one flag whose code is not ported yet
+(--devices above 1) stops with an error naming the ROADMAP item that ports
+it.
 """
 
 import argparse
@@ -219,7 +221,9 @@ def build_parser():
       help="run this configuration twice over a small synthetic input in "
            "a temporary directory and exit (extension); on a card the "
            "first pass builds the CUDA kernel library if it is absent, so "
-           "a deployment pays nvcc here rather than in its first job")
+           "a deployment pays nvcc here rather than in its first job; with "
+           "FASTPLONG_DAEMON=1 both passes run in the resident daemon, "
+           "which they start and warm")
     return p
 
 
@@ -348,8 +352,6 @@ def options_from_args(args, argv):
 def unsupported(opt):
     """The first flag of this run whose code is not ported yet, as an error
     message naming its ROADMAP item; None when the run is supported."""
-    if os.environ.get("FASTPLONG_DAEMON") == "1":
-        return "FASTPLONG_DAEMON=1 is not ported yet (ROADMAP A.19b)"
     if opt.devices > 1:
         return "--devices above 1 is not ported yet (ROADMAP A.17)"
     return None
@@ -459,6 +461,20 @@ def main(argv=None):
         argv = sys.argv
     if len(argv) > 1 and "--prewarm" in argv[1:]:
         return _run_prewarm(argv)
+    # the warm daemon, before the arguments are parsed and before anything
+    # imports torch: the client stays light, and the job runs where torch,
+    # the CUDA context and the kernel library are loaded already.  When no
+    # job could be handed over, it runs here, on the device it asks for
+    if (os.environ.get("FASTPLONG_DAEMON") == "1"
+            and os.environ.get("FASTPLONG_DAEMON_CHILD") != "1"
+            and len(argv) > 1):
+        from . import daemon
+        if daemon.eligible(argv):
+            rc = daemon.run_via_daemon(argv)
+            if rc is not None:
+                return rc
+            sys.stderr.write("fastplong: daemon unavailable, "
+                             "running in-process\n")
     if len(argv) == 1:
         sys.stderr.write(
             "fastplong: ultra-fast FASTQ preprocessing and quality control "

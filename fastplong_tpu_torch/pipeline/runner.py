@@ -18,6 +18,7 @@ step and are statted on the host (pipeline/host_stats.py).
 the native host pass instead; auto means device.
 """
 
+import contextlib
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -137,6 +138,7 @@ class SingleEndRunner:
         self.out_writer = None
         self.failed_writer = None
         self.split_set = None    # --split/--split_by_lines writers
+        self.reader = None
         self.timer = StageTimer()
         self.step_calls = 0      # device step launches (one per batch)
 
@@ -149,6 +151,31 @@ class SingleEndRunner:
     # ------------------------------------------------------------------ run
 
     def run(self):
+        """Process the input; returns (pre_stats, post_stats,
+        filter_result).  A run that fails stops its writer threads and
+        closes its files before the error goes on, so that nothing of it
+        keeps running in a process that serves more jobs (the daemon)."""
+        try:
+            return self._run()
+        except BaseException:
+            self._abandon()
+            raise
+
+    def _abandon(self):
+        writers = [self.out_writer, self.failed_writer]
+        if self.split_set is not None:
+            writers += [st.writer for st in self.split_set.states]
+        for w in writers:
+            if w is not None:
+                # the run's own error is the one to report
+                with contextlib.suppress(Exception):
+                    w.close()
+        if self.host_stats_mode:
+            self._stats_pool.shutdown(wait=True, cancel_futures=True)
+        if self.reader is not None:
+            self.reader.close()
+
+    def _run(self):
         opt = self.opt
         if opt.split.enabled:
             # split mode: per-thread rotating writers, no failed_out
@@ -163,7 +190,7 @@ class SingleEndRunner:
                 self.out_writer = make_output_writer(
                     opt.out, opt.compression, stdout=opt.output_to_stdout,
                     buffer_size=opt.writer_buffer_size)
-        reader = FastqStreamReader(
+        reader = self.reader = FastqStreamReader(
             "/dev/stdin" if opt.input_from_stdin and not opt.in_file
             else opt.in_file, byte_range=opt.byte_range)
         if opt.verbose:

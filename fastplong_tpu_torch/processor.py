@@ -32,12 +32,32 @@ def _profiled_run(runner, trace_dir):
         return runner.run()
 
 
+def _launch_counts():
+    """Each CUDA kernel's launch count so far in this process, by the name
+    chip_smoke.py gives it (the wrappers' `launches` counters, which keep
+    counting across the jobs of a daemon)."""
+    from .ops.adapter import seed_scan
+    from .ops.kmer import kmer_hist
+    from .ops.mismatch import mismatch_scan
+    from .ops.myers import myers_blockscan, myers_verify
+    from .ops.regions import detect_regions_summary
+    from .ops.stats_kernels import stat_batch_into
+    return {"mismatch_scan": mismatch_scan.launches,
+            "myers_verify": myers_verify.launches,
+            "seed_scan": seed_scan.launches,
+            "stat_batch": stat_batch_into.launches,
+            "regions": detect_regions_summary.launches,
+            "kmer_hist": kmer_hist.launches,
+            "myers_blockscan": myers_blockscan.launches}
+
+
 def process(opt, device=None):
     """Run one configured job; device defaults to FASTPLONG_TORCH_DEVICE,
     else cuda (see fastplong_tpu_torch.resolve_device)."""
     from .pipeline.runner import SingleEndRunner
     device = resolve_device(device)
     phases = {}
+    launches0 = _launch_counts()
     t0 = time.perf_counter()
     support_evaluation = (not opt.input_from_stdin
                           and opt.in_file != "/dev/stdin")
@@ -109,5 +129,8 @@ def process(opt, device=None):
                        "evaluator_seconds": {k: round(v, 4) for k, v
                                              in eva.seconds.items()},
                        "stage_seconds": runner.timer.report(),
-                       "step_calls": runner.step_calls}, f)
+                       "step_calls": runner.step_calls,
+                       # this job's launches alone
+                       "launches": {k: v - launches0[k] for k, v
+                                    in _launch_counts().items()}}, f)
     return pre_stats, post_stats, filter_result

@@ -111,7 +111,6 @@ def test_step_without_card_fails(tmp_path, no_card):
 
 UNSUPPORTED = [
     ("devices", ["--devices", "2"], {}, "A.17"),
-    ("daemon", [], {"FASTPLONG_DAEMON": "1"}, "A.19b"),
 ]
 
 
