@@ -49,7 +49,14 @@ FASTPLONG_DAEMON=1, cold and warm over 300 reads, the headline over the
 64-Mbase input and config 4, each job's outputs, launches and
 "Detected:" lines held to the in-process runs, no client importing
 torch, the daemon holding a CUDA context until shutdown_daemon() ends
-it) and `python -m fastplong_tpu_torch.edbench` on the card (5l).
+it) and `python -m fastplong_tpu_torch.edbench` on the card (5l).  Then
+--devices (5m): the runner's library entry with devices=[cuda:0, cuda:0]
+(two row slices, two statistics partials) over the headline input, with
+-b -N over 5b's input and with --stats_backend host, each held to phase 5
+or 5b with the same launches per step call; --devices 2 through the CLI
+as a subprocess (exit 255 and the JAX package's message with one card;
+with two, phase 5's outputs and a compute context on each card); and 3
+reads over four slices, equal to one device's run.
 
     python3 chip_smoke.py --walls
 
@@ -1006,9 +1013,13 @@ def headline_input(workdir):
     return in_fq, headline_input.bases
 
 
-def run_cli(workdir, in_fq, tag, device, timer_dump=None, flags=HEADLINE):
-    """One in-process CLI run; returns (wall seconds, output paths)."""
-    from fastplong_tpu_torch.main import main
+def run_cli(workdir, in_fq, tag, device, timer_dump=None, flags=HEADLINE,
+            devices=None):
+    """One in-process CLI run; returns (wall seconds, output paths).  With
+    `devices` the job goes through the library entry instead:
+    processor.process with the runner's list of devices (row slices)."""
+    from fastplong_tpu_torch.main import build_parser, main, options_from_args
+    from fastplong_tpu_torch.processor import process
     outs = [os.path.join(workdir, tag + s)
             for s in (".fq", ".failed.fq", ".json", ".html")]
     argv = ["fastplong", "-i", in_fq, "-o", outs[0], "--failed_out",
@@ -1022,7 +1033,12 @@ def run_cli(workdir, in_fq, tag, device, timer_dump=None, flags=HEADLINE):
         with open(os.path.join(workdir, tag + ".log"), "w") as err, \
                 contextlib.redirect_stderr(err):
             t0 = time.perf_counter()
-            rc = main(argv)
+            if devices is None:
+                rc = main(argv)
+            else:
+                process(options_from_args(
+                    build_parser().parse_args(argv[1:]), argv), devices=devices)
+                rc = 0
             if device == "cuda":
                 import torch
                 torch.cuda.synchronize()
@@ -1110,6 +1126,9 @@ PER_STEP = {
     # verify takes the block-scan
     "long": {"mismatch_scan": 2, "myers_verify": 2, "seed_scan": 2,
              "stat_batch": 2, "myers_blockscan": 2},
+    # --stats_backend host: the statistics are the host's
+    "host_stats": {"mismatch_scan": 2, "myers_verify": 3, "seed_scan": 2,
+                   "stat_batch": 0},
 }
 # kernel launches per run: the k-mer fill, once a side of auto-detection
 PER_RUN = {"autodetect": {"kmer_hist": 2}, "config5": {"kmer_hist": 2}}
@@ -1198,7 +1217,7 @@ def phase_cli(workdir, walls_only=False):
         log("phase 5:   seconds " + json.dumps(timing))
         if not walls_only:
             check_launches(launches, timing["step_calls"], "headline")
-    med = statistics.median(walls)
+    med = phase_cli.median = statistics.median(walls)
     log("phase 5: headline wall median %.3f s (%.2f Mbases/s), range "
         "%.3f-%.3f s over 3 runs" % (med, nbases / med / 1e6, min(walls),
                                      max(walls)))
@@ -1219,22 +1238,24 @@ def no_index_add(evs):
                              % stray)
 
 
-def run_counted(workdir, in_fq, tag, flags, path, phase, label=None):
-    """One CUDA CLI run with the launch counts of `path`'s kernels set to 0
-    before it and checked after it; returns (launches, output paths,
-    wall)."""
+def run_counted(workdir, in_fq, tag, flags, path, phase, label=None,
+                devices=None):
+    """One CUDA CLI run (or library run over `devices`) with the launch
+    counts of `path`'s kernels set to 0 before it and checked after it,
+    per step call; returns (launches, output paths, wall)."""
     wrappers = kernel_wrappers(path_kernels(path))
     for w in wrappers.values():
         w.launches = 0
     dump = os.path.join(workdir, "timer_%s.json" % tag)
     wall, outs_g = run_cli(workdir, in_fq, tag, "cuda", timer_dump=dump,
-                           flags=flags)
+                           flags=flags, devices=devices)
     launches = {n: w.launches for n, w in wrappers.items()}
     with open(dump) as f:
         timing = json.load(f)
-    log("phase %s: %s CLI on cuda (a functional check): wall %.3f s; %d "
+    log("phase %s: %s %s on cuda (a functional check): wall %.3f s; %d "
         "step calls; kernel launches %s"
-        % (phase, label or " ".join(flags[len(HEADLINE):]), wall,
+        % (phase, label or " ".join(flags[len(HEADLINE):]),
+           "CLI" if devices is None else "library run", wall,
            timing["step_calls"], json.dumps(launches)))
     log("phase %s:   seconds %s" % (phase, json.dumps(timing)))
     check_launches(launches, timing["step_calls"], path)
@@ -1267,7 +1288,7 @@ def phase_break_mask(workdir):
     _, evs = profile_cli(workdir, in_fq, flags=flags, phase="5b",
                          path="break_mask")
     no_index_add(evs)
-    return launches, in_fq, nbases
+    return launches, in_fq, nbases, outs_g
 
 
 def _n_runs(path, window):
@@ -1446,16 +1467,18 @@ def cpu_parity(workdir, in_fq, outs_g, nbases, flags=HEADLINE, phase="5",
     check_report(outs_g[0], outs_g[2], n_reads or N_READS, nbases, phase)
 
 
-def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None):
-    """One profiled CUDA run: its wall, device time, op count (in all and
-    per step call, beside the count before this tree where there is one)
-    and top device ops; returns (wall, device events)."""
+def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None,
+                devices=None):
+    """One profiled CUDA run (a library run over `devices` if given): its
+    wall, device time, op count (in all and per step call, beside the
+    count before this tree where there is one) and top device ops;
+    returns (wall, device events)."""
     from torch.profiler import ProfilerActivity, profile
     dump = os.path.join(workdir, "timer_prof.json")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         pwall, _ = run_cli(workdir, in_fq, "prof", "cuda", timer_dump=dump,
-                           flags=flags)
+                           flags=flags, devices=devices)
     with open(dump) as f:
         steps = json.load(f)["step_calls"]
     evs = [e for e in prof.key_averages()
@@ -1987,6 +2010,148 @@ def phase_edbench(workdir, card):
         "%.1f s); %s" % (" / ".join(m.group(3) for m in timed), wall, card))
 
 
+# ------------------------------------------------------------------- 5m
+
+def _card_uuids():
+    """The visible cards' UUIDs by index, as nvidia-smi lists them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=index,uuid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        raise AssertionError("nvidia-smi --query-gpu failed: %s"
+                             % r.stderr.strip())
+    return [ln.split(",")[1].strip() for ln in r.stdout.splitlines()
+            if ln.strip()]
+
+
+def _apps_by_card():
+    """The UUIDs of the cards that hold a compute context now."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=gpu_uuid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return {ln.strip() for ln in r.stdout.splitlines() if ln.strip()}
+
+
+def _devices_cli(workdir, in_fq, outs5):
+    """--devices 2 through the CLI as a subprocess.  With one visible card
+    it must stop with exit code 255 and the JAX package's message; with
+    two or more it must run, write phase 5's outputs and hold a compute
+    context on each of the first two cards while it runs."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    ncards = torch.cuda.device_count()
+    outs = [os.path.join(workdir, "cli_dev2" + s)
+            for s in (".fq", ".failed.fq", ".json", ".html")]
+    env = dict(os.environ, PYTHONPATH=here, FASTPLONG_TORCH_DEVICE="cuda")
+    err_path = os.path.join(workdir, "cli_dev2.log")
+    uuids, seen = _card_uuids(), set()
+    t0 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fastplong_tpu_torch.main", "-i", in_fq,
+             "-o", outs[0], "--failed_out", outs[1], "-j", outs[2], "-h",
+             outs[3], "--devices", "2"] + HEADLINE, cwd=workdir, env=env,
+            stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("--devices 2 ran past 300 s")
+                if ncards >= 2:
+                    seen |= _apps_by_card()
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(err_path, errors="replace") as f:
+        err = f.read()
+    if ncards < 2:
+        want = ("ERROR: --devices 2 requested but only %d device(s) "
+                "available" % ncards)
+        if proc.returncode != 255 or want not in err.splitlines():
+            raise AssertionError("--devices 2 on %d card(s): exit %d, "
+                                 "stderr %r" % (ncards, proc.returncode,
+                                                err[-2000:]))
+        log("phase 5m: --devices 2 on this %d-card machine: exit 255 with "
+            "%r (%.1f s)" % (ncards, want, wall))
+        return
+    if proc.returncode != 0:
+        raise AssertionError("--devices 2 exited %d:\n%s"
+                             % (proc.returncode, err[-3000:]))
+    require_same_outputs(outs, outs5, "5m", "--devices 2 against phase 5")
+    missing = [i for i in (0, 1) if uuids[i] not in seen]
+    if missing:
+        raise AssertionError("--devices 2 held no compute context on card(s) "
+                             "%s" % missing)
+    log("phase 5m: --devices 2 through the CLI on %d cards: rc 0 in %.1f s, "
+        "a compute context on cards 0 and 1, outputs equal to phase 5's"
+        % (ncards, wall))
+
+
+def phase_devices(workdir, card, outs5, outs5b, lowq_fq):
+    """5m: --devices (pipeline/sharding.py).  Through the runner's library
+    entry with devices=[cuda:0, cuda:0] (two row slices, two statistics
+    partials summed at the drain): (a) the headline over phase 5's input
+    twice, the first run being the first at the slices' shapes, and
+    profiled once, its outputs equal to phase 5's and its launches per
+    step call (one step call per non-empty slice) as there, its walls
+    printed beside phase 5's median; (b) -b -N over phase 5b's input, held to 5b; (c)
+    --stats_backend host (the stats-free sliced step), held to phase 5.
+    (d) --devices 2 through the CLI as a subprocess (_devices_cli).  (e)
+    3 reads over devices=[cuda:0] * 4, so that slices are empty and
+    launch nothing: its outputs equal the one-device run's."""
+    import torch
+    cuda0 = torch.device("cuda", 0)
+    in_fq, nbases = headline_input(workdir)
+    walls = []
+    for k in range(2):
+        _, outs, wall = run_counted(workdir, in_fq, "dev2", HEADLINE,
+                                    "headline", "5m",
+                                    "headline over 2 slices, run %d" % k,
+                                    [cuda0] * 2)
+        require_same_outputs(outs, outs5, "5m", "two slices against phase 5")
+        walls.append(wall)
+    log("phase 5m: headline over two row slices on cuda:0: %d bases in %.3f "
+        "and %.3f s = %.2f and %.2f Mbases/s, beside phase 5's median %.3f "
+        "s; outputs equal to phase 5's; %s"
+        % (nbases, walls[0], walls[1], nbases / walls[0] / 1e6,
+           nbases / walls[1] / 1e6, phase_cli.median, card))
+    profile_cli(workdir, in_fq, phase="5m", devices=[cuda0] * 2)
+    _, outs, wall = run_counted(workdir, lowq_fq, "dev2_bm",
+                                HEADLINE + ["-b", "-N"], "break_mask", "5m",
+                                "-b -N over 2 slices", [cuda0] * 2)
+    require_same_outputs(outs, outs5b, "5m", "two slices against phase 5b")
+    log("phase 5m: -b -N over two row slices: wall %.3f s; outputs equal to "
+        "phase 5b's" % wall)
+    _, outs, wall = run_counted(workdir, in_fq, "dev2_host",
+                                HEADLINE + ["--stats_backend", "host"],
+                                "host_stats", "5m",
+                                "--stats_backend host over 2 slices",
+                                [cuda0] * 2)
+    require_same_outputs(outs, outs5, "5m", "two slices with host statistics "
+                         "against phase 5")
+    log("phase 5m: --stats_backend host over two row slices: wall %.3f s; "
+        "outputs equal to phase 5's" % wall)
+    _devices_cli(workdir, in_fq, outs5)
+    three = os.path.join(workdir, "three.fq")
+    with open(in_fq, "rb") as src, open(three, "wb") as dst:
+        dst.write(b"".join(src.readline() for _ in range(4 * 3)))
+    _, one = run_cli(workdir, three, "three_one", "cuda", devices=[cuda0])
+    _, outs, _ = run_counted(workdir, three, "three_four", HEADLINE,
+                             "headline", "5m", "3 reads over 4 slices",
+                             [cuda0] * 4)
+    with open(os.path.join(workdir, "timer_three_four.json")) as f:
+        steps = json.load(f)["step_calls"]
+    require_same_outputs(outs, one, "5m", "3 reads over 4 slices against "
+                         "one device")
+    if steps > 3:
+        raise AssertionError("3 reads over 4 slices made %d step calls: an "
+                             "empty slice launched" % steps)
+    log("phase 5m: 3 reads over 4 slices: %d step call(s), so at least one "
+        "empty slice launched nothing; outputs equal to one device's" % steps)
+
+
 def main():
     try:
         import torch
@@ -2021,7 +2186,7 @@ def main():
         phase_step(HEADLINE + ["-b", "-N"])
         phase_step(HEADLINE + ["-N"])
         launches, kind, outs5 = phase_cli(workdir)
-        bm, lowq_fq, lowq_bases = phase_break_mask(workdir)
+        bm, lowq_fq, lowq_bases, outs5b = phase_break_mask(workdir)
         launches["regions"] = bm["regions"]
         phase_mask(workdir, lowq_fq, lowq_bases)
         launches["kmer_hist"] = phase_autodetect(workdir)["kmer_hist"]
@@ -2035,7 +2200,9 @@ def main():
                 ("5i", phase_parallel, tuple),
                 ("5j", phase_num_hosts, lambda: (outs5,)),
                 ("5k", phase_daemon, lambda: (card, outs5, done["5h"])),
-                ("5l", phase_edbench, lambda: (card,))):
+                ("5l", phase_edbench, lambda: (card,)),
+                ("5m", phase_devices, lambda: (card, outs5, outs5b,
+                                               lowq_fq))):
             t0 = time.perf_counter()
             done[phase] = fn(workdir, *args())
             log("phase %s: done in %.1f s" % (phase, time.perf_counter()

@@ -20,8 +20,9 @@ Public entry points:
                                                        # (FASTPLONG_DAEMON=1)
     from fastplong_tpu_torch.edbench import main       # Myers self-benchmark
 
-Every CLI flag of fastplong_tpu.main is served except --devices above 1
-(ROADMAP A.17), which stops with an error naming that item.
+Every CLI flag of fastplong_tpu.main is served, --devices N among them
+(pipeline/sharding.py: the step data-parallel over N cards' row slices,
+or N slices on the host with the CPU).
 
 Device rule: every entry point runs on CUDA unless the caller asks for the
 CPU (`device="cpu"`, or FASTPLONG_TORCH_DEVICE=cpu for the CLI).  There is

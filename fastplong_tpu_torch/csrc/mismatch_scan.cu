@@ -360,15 +360,21 @@ __global__ void mismatch_loop_kernel(const uint8_t* __restrict__ bases,
 }
 
 // rows per block: enough blocks for one wave over the card's SMs, each
-// block then streams its rows, loading the next while it counts one
+// block then streams its rows, loading the next while it counts one.  The
+// SM count is kept per device (the launch's device is the current one,
+// ops/cuda_lib.py:launch), so cards of different types each get theirs
+constexpr int kMaxDevices = 64;
+
 int rows_per_block(int blocks_per_row, int B) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
+  static int sms_of[kMaxDevices] = {};
+  int dev = 0;
+  int sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kMaxDevices) {
+    if (sms_of[dev] == 0 &&
+        cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess)
+      sms_of[dev] = 132;
+    sms = sms_of[dev];
   }
   const long slots = static_cast<long>(sms) * kBlocksPerSM;
   const long need = static_cast<long>(blocks_per_row) * B;

@@ -4,9 +4,7 @@ fastplong_tpu.main, whose parser this copies.
 
 Runs on CUDA unless FASTPLONG_TORCH_DEVICE=cpu.  With FASTPLONG_DAEMON=1
 the job goes to the resident daemon (daemon.py), which runs it on the
-device its client asked for.  The one flag whose code is not ported yet
-(--devices above 1) stops with an error naming the ROADMAP item that ports
-it.
+device its client asked for.  Every flag of the JAX CLI runs.
 """
 
 import argparse
@@ -179,7 +177,11 @@ def build_parser():
       help="worker thread number, default is 3")
     a("--devices", type=int, default=1,
       help="run the device step data-parallel over this many accelerator "
-           "devices (extension; only 1 is ported), default is 1")
+           "devices (extension): each batch's rows are split over cards "
+           "0..N-1, each with its own statistics partial summed at the "
+           "end; an error when fewer cards are visible. With "
+           "FASTPLONG_TORCH_DEVICE=cpu, N row slices run on the host. "
+           "Default is 1")
     a("--profile", default="",
       help="write a torch.profiler trace of the run (host ops, and the "
            "card's kernels on CUDA) into this directory, one "
@@ -349,14 +351,6 @@ def options_from_args(args, argv):
     return opt
 
 
-def unsupported(opt):
-    """The first flag of this run whose code is not ported yet, as an error
-    message naming its ROADMAP item; None when the run is supported."""
-    if opt.devices > 1:
-        return "--devices above 1 is not ported yet (ROADMAP A.17)"
-    return None
-
-
 def _run_prewarm(argv):
     """--prewarm: run the given configuration twice over a small synthetic
     input (adapters planted so explicit-adapter configs exercise their
@@ -483,9 +477,6 @@ def main(argv=None):
         return 0
     args = build_parser().parse_args(argv[1:])
     opt = options_from_args(args, argv)
-    msg = unsupported(opt)
-    if msg:
-        error_exit(msg)
     try:
         device = resolve_device()
     except (RuntimeError, ValueError) as e:

@@ -175,12 +175,10 @@ def seed_scan(bases, base_abs, ncand, seed_tbl, plen, start_side):
                       device=bases.device)
     if B == 0:
         return out
-    rc = cuda_lib.lib().fpl_seed_scan(
-        cuda_lib.ptr(bases), B, L, cuda_lib.ptr(base_abs),
-        cuda_lib.ptr(ncand), cuda_lib.ptr(seed_tbl), plen,
-        int(bool(start_side)), SEED_WINDOWS, cuda_lib.ptr(out),
-        cuda_lib.stream(bases))
-    cuda_lib.check(rc, "seed_scan")
+    cuda_lib.launch(
+        "fpl_seed_scan", bases, cuda_lib.ptr(bases), B, L,
+        cuda_lib.ptr(base_abs), cuda_lib.ptr(ncand), cuda_lib.ptr(seed_tbl),
+        plen, int(bool(start_side)), SEED_WINDOWS, cuda_lib.ptr(out))
     seed_scan.launches += 1
     return out
 

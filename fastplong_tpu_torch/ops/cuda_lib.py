@@ -10,7 +10,10 @@ build raises: nothing here falls back to another implementation.
 
 Each C entry point takes device pointers and the CUDA stream as void*,
 launches on that stream without synchronising, and returns
-cudaGetLastError(); `check` raises on a non-zero code.
+cudaGetLastError().  Every wrapper calls its entry point through `launch`,
+which makes the device of the wrapper's tensors the host thread's current
+device for the call (a <<<...>>> launch goes to the current device, not to
+the stream's) and raises on a non-zero code.
 """
 
 import ctypes
@@ -124,16 +127,23 @@ def lib():
     return _lib
 
 
-def check(rc, name):
-    if rc != 0:
-        raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d"
-                           % (name, rc))
-
-
 def stream(t):
     """The current CUDA stream of tensor t's device, as a void*."""
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(entry, t, *args):
+    """Call the C entry point `entry` with args and the current stream of
+    tensor t's device, t's device being the host thread's current device
+    for the call, so that a thread whose current device is another card
+    launches on t's card; raises if the entry point returns an error."""
+    import torch
+    with torch.cuda.device(t.device):
+        rc = getattr(lib(), entry)(*args, stream(t))
+    if rc != 0:
+        raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d"
+                           % (entry, rc))
 
 
 def ptr(t):

@@ -77,10 +77,9 @@ def kmer_hist(acc, mat, npos, pbase, sign):
     cuda_lib.require_cuda("kmer_hist", mat, npos, pbase, acc)
     if n == 0 or wfull <= KEYLEN:
         return acc
-    rc = cuda_lib.lib().fpl_kmer_hist(
-        cuda_lib.ptr(mat), n, wfull, cuda_lib.ptr(npos), cuda_lib.ptr(pbase),
-        sign, cuda_lib.ptr(acc), cuda_lib.stream(mat))
-    cuda_lib.check(rc, "kmer_hist")
+    cuda_lib.launch(
+        "fpl_kmer_hist", mat, cuda_lib.ptr(mat), n, wfull,
+        cuda_lib.ptr(npos), cuda_lib.ptr(pbase), sign, cuda_lib.ptr(acc))
     kmer_hist.launches += 1
     return acc
 

@@ -49,10 +49,10 @@ def mismatch_scan(bases, adapter):
     out = torch.empty((B, L), dtype=dt, device=bases.device)
     if B == 0 or L == 0:
         return out
-    rc = cuda_lib.lib().fpl_mismatch_scan(
-        cuda_lib.ptr(bases), B, L, cuda_lib.ptr(adapter), alen,
-        cuda_lib.ptr(out), int(dt == torch.uint8), cuda_lib.stream(bases))
-    cuda_lib.check(rc, "mismatch_scan")
+    cuda_lib.launch(
+        "fpl_mismatch_scan", bases, cuda_lib.ptr(bases), B, L,
+        cuda_lib.ptr(adapter), alen, cuda_lib.ptr(out),
+        int(dt == torch.uint8))
     mismatch_scan.launches += 1
     return out
 

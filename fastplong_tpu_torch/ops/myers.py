@@ -119,8 +119,7 @@ def myers_verify(pm_tbl, plen, text, tlen):
     out, args, _keep = _kernel_args(pm_tbl, plen, text, tlen)
     if text.shape[0] == 0:
         return out
-    rc = cuda_lib.lib().fpl_myers_verify(*args, cuda_lib.stream(text))
-    cuda_lib.check(rc, "myers_verify")
+    cuda_lib.launch("fpl_myers_verify", text, *args)
     myers_verify.launches += 1
     return out
 
@@ -137,9 +136,7 @@ def myers_verify_pair(first, second):
     cuda_lib.require_cuda("myers_verify_pair", first[2], second[2])
     if out0.shape[0] + out1.shape[0] == 0:
         return out0, out1
-    rc = cuda_lib.lib().fpl_myers_verify_pair(*args0, *args1,
-                                              cuda_lib.stream(first[2]))
-    cuda_lib.check(rc, "myers_verify_pair")
+    cuda_lib.launch("fpl_myers_verify_pair", first[2], *args0, *args1)
     myers_verify.launches += 1
     return out0, out1
 
@@ -168,11 +165,10 @@ def myers_blockscan(pm_tbl, plen, text, tlen):
         return out
     nblk = max((T + 7) // 8, 1)
     scratch = torch.empty((N, nblk), dtype=torch.int32, device=text.device)
-    rc = cuda_lib.lib().fpl_myers_blockscan(
-        cuda_lib.ptr(text), N, T, cuda_lib.ptr(plen), cuda_lib.ptr(tlen),
-        cuda_lib.ptr(pm_tbl), K, cuda_lib.ptr(scratch), nblk,
-        cuda_lib.ptr(out), cuda_lib.stream(text))
-    cuda_lib.check(rc, "myers_blockscan")
+    cuda_lib.launch(
+        "fpl_myers_blockscan", text, cuda_lib.ptr(text), N, T,
+        cuda_lib.ptr(plen), cuda_lib.ptr(tlen), cuda_lib.ptr(pm_tbl), K,
+        cuda_lib.ptr(scratch), nblk, cuda_lib.ptr(out))
     myers_blockscan.launches += 1
     return out
 

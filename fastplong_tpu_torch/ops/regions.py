@@ -120,10 +120,9 @@ def detect_regions_summary(cq, lo, hi, w, T):
     out = torch.empty((3,) + tuple(lo.shape), dtype=torch.int32,
                       device=cq.device)
     if n > 0:
-        rc = cuda_lib.lib().fpl_regions(
-            cuda_lib.ptr(cq), B, L, cuda_lib.ptr(lo), cuda_lib.ptr(hi), n, w,
-            T, cuda_lib.ptr(out), cuda_lib.stream(cq))
-        cuda_lib.check(rc, "regions")
+        cuda_lib.launch(
+            "fpl_regions", cq, cuda_lib.ptr(cq), B, L, cuda_lib.ptr(lo),
+            cuda_lib.ptr(hi), n, w, T, cuda_lib.ptr(out))
         detect_regions_summary.launches += 1
     return out[0], out[1], out[2]
 

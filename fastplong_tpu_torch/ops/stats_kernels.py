@@ -212,12 +212,11 @@ def stat_batch_into(side, bases, quals, lo, hi, read_mask, zero_lo=False):
                           read_mask)
     median = torch.empty((S, B), dtype=torch.uint8, device=bases.device)
     if S * B > 0:
-        rc = cuda_lib.lib().fpl_stat_batch_into(
-            cuda_lib.ptr(bases), cuda_lib.ptr(quals), S, B, L,
-            cuda_lib.ptr(lo), cuda_lib.ptr(hi), cuda_lib.ptr(read_mask),
-            int(bool(zero_lo)), cuda_lib.ptr(side), side_stat_len(side),
-            cuda_lib.ptr(median), cuda_lib.stream(bases))
-        cuda_lib.check(rc, "stat_batch_into")
+        cuda_lib.launch(
+            "fpl_stat_batch_into", bases, cuda_lib.ptr(bases),
+            cuda_lib.ptr(quals), S, B, L, cuda_lib.ptr(lo), cuda_lib.ptr(hi),
+            cuda_lib.ptr(read_mask), int(bool(zero_lo)), cuda_lib.ptr(side),
+            side_stat_len(side), cuda_lib.ptr(median))
         stat_batch_into.launches += 1
     return median
 

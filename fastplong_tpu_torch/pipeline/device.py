@@ -355,12 +355,16 @@ def unflatten_side(flat, L):
     return out
 
 
-def stats_state_to_numpy(state, max_seen=None):
-    """The [2, F] accumulator as host int64, with the cycle block cut at
-    the power of two covering the longest statted read (cycles beyond it
-    are zero) — the cut fastplong_tpu's DeviceStats.trimmed_state makes.
-    Returns (array, cycle length)."""
-    SL = side_stat_len(state)
+def stats_state_to_numpy(states, max_seen=None):
+    """The sum of the [2, F] accumulators in `states` (one per row slice
+    under --devices, pipeline/sharding.py), as host int64, with the cycle
+    block cut at the power of two covering the longest statted read
+    (cycles beyond it are zero) — the cut fastplong_tpu's
+    DeviceStats.trimmed_state makes.  The partials are summed before the
+    cut, as fastplong_tpu/pipeline/fast_runner.py sums its per-device
+    axis, so the result is one device's bit for bit.  Returns (array,
+    cycle length)."""
+    SL = side_stat_len(states[0])
     m = SL
     if max_seen is not None:
         m = max(1, min(SL, int(max_seen)))
@@ -368,11 +372,11 @@ def stats_state_to_numpy(state, max_seen=None):
         while q < m:
             q *= 2
         m = min(q, SL)
-    st = state
+    flat = sum(st.cpu().numpy().astype(np.int64) for st in states)
     if m < SL:
-        st = torch.cat([state[:, :FLAT_PER_L * m],
-                        state[:, FLAT_PER_L * SL:]], dim=1)
-    return st.cpu().numpy().astype(np.int64), m
+        flat = np.concatenate([flat[:, :FLAT_PER_L * m],
+                               flat[:, FLAT_PER_L * SL:]], axis=1)
+    return flat, m
 
 
 def stats_state_from_numpy(arr, device):

@@ -11,11 +11,17 @@ flight, async writers and one statistics drain at the end of the run; its
 interconnect machinery (link policy, stream feed, prewarm pool, fetch
 watchdog) has no counterpart on directly attached hardware.
 
+Devices (--devices N, pipeline/sharding.py): each batch's rows are cut
+into one slice per device, every slice is launched before any is waited
+on, and each device writes its rows into its part of the batch's pinned
+host rows.  One device is the case of one slice.
+
 Statistics: buckets at or under stat_device_cap() accumulate into the
-device-resident [2, F] state; longer (monster) buckets take the stats-free
-step and are statted on the host (pipeline/host_stats.py).
---stats_backend host sends every bucket through the stats-free step and
-the native host pass instead; auto means device.
+device-resident [2, F] states, one per slice; longer (monster) buckets
+bypass the slices, take the first device's stats-free step and are statted
+on the host (pipeline/host_stats.py).  --stats_backend host sends every
+bucket through the stats-free step and the native host pass instead; auto
+means device.
 """
 
 import contextlib
@@ -24,7 +30,6 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from .. import resolve_device
 from ..common import stat_device_cap
@@ -34,12 +39,12 @@ from ..io.writer import make_output_writer
 from ..stats import Stats
 from ..util import loginfo
 from .batches import BatchBuilder, bucket_groups
-from .device import (build_fast_step, global_stat_len, kernel_params,
-                     params_cap, stats_state_to_numpy, unflatten_side,
-                     zero_stats_state)
+from .device import (global_stat_len, kernel_params, params_cap,
+                     stats_state_to_numpy, unflatten_side)
 from .emit import emit_block_fast
 from .host_stats import (BatchStatAccumulator, HostStatAccumulator,
                          masked_span, median_qual)
+from .sharding import Placement, build_fast_sharded_step, make_devices
 from .split import SplitWriterSet
 
 MAX_IN_FLIGHT = 3          # batches dispatched but not yet consumed
@@ -110,14 +115,27 @@ class BlockResults:
 
 
 class SingleEndRunner:
-    def __init__(self, opt, device=None):
+    def __init__(self, opt, device=None, devices=None):
+        """device follows resolve_device; opt.devices above 1 runs on that
+        many devices (sharding.make_devices).  devices, a list in which a
+        device may repeat, runs one row slice on each and overrides
+        both."""
         self.opt = opt
-        self.device = resolve_device(device)
+        if devices is None:
+            devices = (make_devices(opt.devices, device) if opt.devices > 1
+                       else [device])
+        self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
+        self.placement = Placement(self.devices)
+        # monster buckets bypass the slices: the first device alone
+        self._monster_placement = (self.placement if self.placement.n == 1
+                                   else Placement(self.devices[:1]))
         self.params = kernel_params(opt)
         self.cap = params_cap(self.params)
         self.mask_on = self.params["mask_enabled"]
-        self.step, self.stages = build_fast_step(self.params, self.device)
-        self._nostats_step = None
+        self.step, self.stages = build_fast_sharded_step(self.params,
+                                                         self.placement)
+        self._nostats_steps = {}
         self.stat_cap = stat_device_cap()
         backend = getattr(opt, "stats_backend", "auto")
         self.host_stats_mode = backend == "host"
@@ -133,20 +151,20 @@ class SingleEndRunner:
             # the pre pass runs on its own worker (the native call
             # releases the GIL); post runs on the main thread at consume
             self._stats_pool = ThreadPoolExecutor(max_workers=1)
-        self.state = None        # [2, F] device accumulator, created lazily
+        self.states = None       # [2, F] accumulator per slice, made lazily
         self.max_seen = 0        # longest device-statted read
         self.out_writer = None
         self.failed_writer = None
         self.split_set = None    # --split/--split_by_lines writers
         self.reader = None
         self.timer = StageTimer()
-        self.step_calls = 0      # device step launches (one per batch)
+        self.step_calls = 0      # step launches (one per non-empty slice)
 
-    def _nostats(self):
-        if self._nostats_step is None:
-            self._nostats_step = build_fast_step(
-                self.params, self.device, with_stats=False)[0]
-        return self._nostats_step
+    def _nostats(self, placement):
+        if placement not in self._nostats_steps:
+            self._nostats_steps[placement] = build_fast_sharded_step(
+                self.params, placement, with_stats=False)[0]
+        return self._nostats_steps[placement]
 
     # ------------------------------------------------------------------ run
 
@@ -226,7 +244,10 @@ class SingleEndRunner:
             for L, take in bucket_groups(block):
                 b = builders.get(L)
                 if b is None:
-                    b = builders[L] = BatchBuilder(L)
+                    # rows a multiple of the slices, except in monster
+                    # buckets, which bypass them
+                    b = builders[L] = BatchBuilder(
+                        L, self.placement.n if L <= self.stat_cap else 1)
                 pos = 0
                 while pos < len(take):
                     k = min(b.space, len(take) - pos)
@@ -263,8 +284,8 @@ class SingleEndRunner:
         timer.add("writer_close", time.perf_counter() - t0)
 
         t0 = time.perf_counter()
-        if self.state is not None:
-            flat, m = stats_state_to_numpy(self.state, self.max_seen)
+        if self.states is not None:
+            flat, m = stats_state_to_numpy(self.states, self.max_seen)
             self.pre_stats.add_device_partial(unflatten_side(flat[0], m))
             self.post_stats.add_device_partial(unflatten_side(flat[1], m))
         parts = [(self.pre_stats, self._host_pre.partial()),
@@ -287,9 +308,9 @@ class SingleEndRunner:
     # -------------------------------------------------------------- batches
 
     def _dispatch(self, batch):
-        """Copy one batch to the device, launch its step and queue the copy
-        of its rows back to pinned host memory (all asynchronous on the
-        current stream)."""
+        """Copy one batch's row slices to their devices, launch the step on
+        each and queue the copies of their rows back into one pinned host
+        buffer (all asynchronous, each on its device's current stream)."""
         t0 = time.perf_counter()
         n = int(batch.read_mask.sum())
         if n < batch.packed.shape[0]:
@@ -298,42 +319,32 @@ class SingleEndRunner:
             batch.lens = batch.lens[:n]
             batch.read_mask = batch.read_mask[:n]
         monster = batch.L > self.stat_cap
-        cuda = self.device.type == "cuda"
         if self.host_stats_mode and not monster:
             batch.pre_medians = self._stats_pool.submit(
                 self._timed_pre_rows, batch)
-        x = torch.from_numpy(batch.packed)
-        if cuda:
-            x = x.pin_memory()
-        xd = x.to(self.device, non_blocking=True)
+        placement = self._monster_placement if monster else self.placement
+        x, parts = placement.split_rows(batch.packed)
         if monster or self.host_stats_mode:
-            rows = self._nostats()(xd, batch.L)
+            rows, events = self._nostats(placement)(parts, batch.L)
         else:
-            if self.state is None:
-                self.state = zero_stats_state(global_stat_len(), self.device)
-            rows = self.step(self.state, xd, batch.L)
+            if self.states is None:
+                self.states = placement.init_state(global_stat_len())
+            rows, events = self.step(self.states, parts, batch.L)
             self.max_seen = max(self.max_seen, int(batch.lens.max()))
-        self.step_calls += 1
-        event = None
-        if cuda:
-            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            host.copy_(rows, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            rows = host
+        self.step_calls += sum(part is not None for part, _, _ in parts)
         if not (self.host_stats_mode and not monster):
             batch.packed = None   # the host pass no longer needs the feed
         # x stays referenced until the batch is consumed: its pinned pages
-        # must outlive the asynchronous copy
-        self._in_flight.append((batch, rows, event, x))
+        # must outlive the asynchronous copies
+        self._in_flight.append((batch, rows, events, x))
         self.timer.add("dispatch", time.perf_counter() - t0)
         while len(self._in_flight) > MAX_IN_FLIGHT:
             self._drain_one()
 
     def _drain_one(self):
-        batch, rows, event, _ = self._in_flight.popleft()
+        batch, rows, events, _ = self._in_flight.popleft()
         t0 = time.perf_counter()
-        if event is not None:
+        for event in events:
             event.synchronize()
         self.timer.add("device_wait", time.perf_counter() - t0)
         t0 = time.perf_counter()

@@ -51,11 +51,13 @@ def _launch_counts():
             "myers_blockscan": myers_blockscan.launches}
 
 
-def process(opt, device=None):
+def process(opt, device=None, devices=None):
     """Run one configured job; device defaults to FASTPLONG_TORCH_DEVICE,
-    else cuda (see fastplong_tpu_torch.resolve_device)."""
+    else cuda (see fastplong_tpu_torch.resolve_device).  devices, a list in
+    which a device may repeat, runs the step's row slices on them
+    (SingleEndRunner); the evaluator runs on the first device."""
     from .pipeline.runner import SingleEndRunner
-    device = resolve_device(device)
+    device = resolve_device(device if devices is None else devices[0])
     phases = {}
     launches0 = _launch_counts()
     t0 = time.perf_counter()
@@ -91,7 +93,7 @@ def process(opt, device=None):
 
     phases["evaluator"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    runner = SingleEndRunner(opt, device)
+    runner = SingleEndRunner(opt, device, devices)
     phases["runner_init"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if opt.profile_dir:

@@ -320,3 +320,135 @@ def test_kmer_hist_on_card(card, sign):
                     sign)
     assert torch.equal(got.cpu(), ref)
     assert int((ref - start)[1].max()) > 1 << 32
+
+
+# ------------------------------------------------ --devices (row slices)
+
+START = "AATGTACTTCGTTCAGTTACGTATTGCT"
+END = "AGCAATACGTAACTGAACGAAGT"
+HEADLINE = ["-s", START, "-e", END, "-5", "-3", "-x"]
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    return torch.device("cuda", 1)
+
+
+def _slices_input(path):
+    """Reads with both headline adapters and, in a third of them, a
+    stretch of Q2-Q8 qualities for break and mask."""
+    from chip_smoke import gen_input
+    gen_input(path, n_reads=600, mean_len=1500, seed=31, lowq=0.3)
+
+
+def _argv(d, in_fq, flags):
+    return ["fastplong", "-i", in_fq, "-o", str(d / "out.fq"),
+            "--failed_out", str(d / "failed.fq"), "-j", str(d / "r.json"),
+            "-h", str(d / "r.html")] + flags
+
+
+def _same_outputs(a, b):
+    from chip_smoke import _normalised
+    for n in ("out.fq", "failed.fq", "r.json", "r.html"):
+        assert _normalised(str(a / n)) == _normalised(str(b / n)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [HEADLINE, HEADLINE + ["-b", "-N"]],
+                         ids=["headline", "break_mask"])
+def test_two_slices_on_one_card(card, flags, tmp_path):
+    """The runner with devices=[cuda:0, cuda:0] (two row slices, two
+    statistics partials) writes what it writes with one slice."""
+    from fastplong_tpu_torch.main import build_parser, options_from_args
+    from fastplong_tpu_torch.processor import process
+    in_fq = str(tmp_path / "in.fq")
+    _slices_input(in_fq)
+    for tag, n in (("one", 1), ("two", 2)):
+        d = tmp_path / tag
+        d.mkdir()
+        argv = _argv(d, in_fq, flags)
+        opt = options_from_args(build_parser().parse_args(argv[1:]), argv)
+        process(opt, devices=[torch.device("cuda", 0)] * n)
+    _same_outputs(tmp_path / "one", tmp_path / "two")
+
+
+@pytest.mark.cuda
+def test_devices_2_on_two_cards(two_cards, tmp_path, monkeypatch):
+    """--devices 2 through the CLI equals --devices 1 (both cards used)."""
+    from fastplong_tpu_torch.main import main
+    monkeypatch.setenv("FASTPLONG_TORCH_DEVICE", "cuda")
+    in_fq = str(tmp_path / "in.fq")
+    _slices_input(in_fq)
+    for tag, n in (("one", 1), ("two", 2)):
+        d = tmp_path / tag
+        d.mkdir()
+        assert main(_argv(d, in_fq, HEADLINE + ["--devices", str(n)])) == 0
+    _same_outputs(tmp_path / "one", tmp_path / "two")
+
+
+@pytest.mark.cuda
+def test_kernels_on_second_card(two_cards):
+    """Every kernel wrapper on cuda:1 tensors, called while cuda:0 is the
+    thread's current device, against its plain version on the same
+    tensors: each launch goes to its tensors' card (ops/cuda_lib.py:
+    launch), one launch a call."""
+    from chip_smoke import (_region_edge_batch, _stat_into_equal,
+                            _stat_slots)
+    from fastplong_tpu_torch.ops.kmer import (KEYSPACE, kmer_hist,
+                                              kmer_hist_plain)
+    from fastplong_tpu_torch.ops.mismatch import mismatch_scan_plain
+    from fastplong_tpu_torch.ops.myers import (myers_blockscan,
+                                               myers_verify_plain)
+    from fastplong_tpu_torch.ops.primitives import qual_cumsum
+    dev = two_cards
+    counters = (mismatch_scan, myers_verify, myers_blockscan,
+                tadapter.seed_scan, tstats.stat_batch_into,
+                tregions.detect_regions_summary, kmer_hist)
+    before = sum(c.launches for c in counters)
+    rng = np.random.default_rng(17)
+    with torch.cuda.device(0):
+        bases = torch.from_numpy(_bases(rng, (64, 4096))).to(dev)
+        for alen in (28, 300):       # the uint8 and the int32 path
+            ad = torch.from_numpy(np.frombuffer(_adapter(rng, alen), np.uint8)
+                                  .copy()).to(dev)
+            assert torch.equal(mismatch_scan(bases, ad),
+                               mismatch_scan_plain(bases, ad)), alen
+        one, seven = _problem(rng, 1, 45, 200, dev), _problem(rng, 7, 220,
+                                                              100, dev)
+        assert torch.equal(myers_verify(*seven), myers_verify_plain(*seven))
+        got = myers_verify_pair(one, seven)
+        assert torch.equal(got[0], myers_verify_plain(*one))
+        assert torch.equal(got[1], myers_verify_plain(*seven))
+        longer = _problem(rng, 22, 330, 64, dev)
+        assert torch.equal(myers_blockscan(*longer),
+                           myers_verify_plain(*longer))
+        spec = tadapter.AdapterSpec(START, 0.25, dev)
+        anchor = torch.from_numpy(rng.integers(-20, 4100, 64)
+                                  .astype(np.int32)).to(dev)
+        ncand = torch.full((64,), 184, dtype=torch.int32, device=dev)
+        for start, tbl in ((True, spec.seed_rev), (False, spec.seed_fwd)):
+            args = (bases, anchor, ncand, tbl, spec.plen, start)
+            assert torch.equal(tadapter.seed_scan(*args),
+                               tadapter.seed_scan_plain(*args)), start
+        arrs = [torch.from_numpy(a).to(dev)
+                for a in _stat_slots(rng, 300, 1000, 2, edge=True)]
+        assert _stat_into_equal("stat_batch", arrs, False, 2000, 300)[0] == 0
+        quals, lens, lo, hi = (torch.from_numpy(a).to(dev)
+                               for a in _region_edge_batch(rng))
+        args = (qual_cumsum(quals, lens), lo, hi, 50, 43 * 50)
+        for g, r in zip(tregions.detect_regions_summary(*args),
+                        tregions.detect_regions_summary_plain(*args)):
+            assert torch.equal(g, r)
+        mat = torch.from_numpy(_bases(rng, (500, 139))).to(dev)
+        npos = torch.full((500,), 129, dtype=torch.int32, device=dev)
+        pbase = torch.from_numpy(rng.integers(0, 1 << 20, 500)).to(dev)
+        acc = torch.zeros((2, KEYSPACE), dtype=torch.int64, device=dev)
+        ref = acc.clone()
+        kmer_hist(acc, mat, npos, pbase, 1)
+        kmer_hist_plain(ref, mat, npos, pbase, 1)
+        assert torch.equal(acc, ref)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+    assert sum(c.launches for c in counters) == before + 10

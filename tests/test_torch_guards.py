@@ -107,23 +107,3 @@ def test_step_without_card_fails(tmp_path, no_card):
         with pytest.raises(RuntimeError):
             build_fast_step(kernel_params(opt), device)
     assert resolve_device("cpu").type == "cpu"
-
-
-UNSUPPORTED = [
-    ("devices", ["--devices", "2"], {}, "A.17"),
-]
-
-
-@pytest.mark.parametrize("name,extra,env,item", UNSUPPORTED,
-                         ids=[u[0] for u in UNSUPPORTED])
-def test_unsupported_flag_stops(name, extra, env, item, tmp_path, capsys,
-                                monkeypatch):
-    from fastplong_tpu_torch.main import main
-    monkeypatch.setenv("FASTPLONG_TORCH_DEVICE", "cpu")
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit) as e:
-        main(_argv(tmp_path, *extra))
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP " + item in err, err

@@ -156,7 +156,7 @@ def test_step_matches_jax(name, extra, with_stats):
     if not with_stats:
         return
     jflat = np.asarray(jstate).astype(np.int64)
-    tflat, m = tdev.stats_state_to_numpy(tstate)
+    tflat, m = tdev.stats_state_to_numpy([tstate])
     assert m == SL
     np.testing.assert_array_equal(tflat, jflat)
     for side in range(2):
@@ -172,10 +172,17 @@ def test_stats_state_round_trip():
     SL = 64
     arr = rng.integers(0, 1 << 40, (2, tdev.flat_side_len(SL)))
     st = tdev.stats_state_from_numpy(arr, "cpu")
-    back, m = tdev.stats_state_to_numpy(st)
+    back, m = tdev.stats_state_to_numpy([st])
     assert m == SL
     np.testing.assert_array_equal(back, arr)
-    cut, m = tdev.stats_state_to_numpy(st, max_seen=20)
+    cut, m = tdev.stats_state_to_numpy([st], max_seen=20)
     assert m == 32
     np.testing.assert_array_equal(cut[:, :18 * 32], arr[:, :18 * 32])
     np.testing.assert_array_equal(cut[:, 18 * 32:], arr[:, 18 * SL:])
+    # partials (one per row slice) are summed before the cut
+    part = rng.integers(0, 1 << 40, arr.shape)
+    two, m = tdev.stats_state_to_numpy(
+        [tdev.stats_state_from_numpy(arr - part, "cpu"),
+         tdev.stats_state_from_numpy(part, "cpu")], max_seen=20)
+    assert m == 32
+    np.testing.assert_array_equal(two, cut)
