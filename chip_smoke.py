@@ -65,6 +65,12 @@ walls, stage seconds, launches and top device ops without checking them;
 copied into an unpacked older tree, it measures that tree's package, so
 that two trees can be timed in turns in one run on one card.
 
+    python3 chip_smoke.py --scan
+
+runs only the mismatch scan's block of phase 3 (every shape, parity with
+the plain version, graph and event times, bound, conv1d) on phase 3's
+bases and stops, for the same use: the scan of two trees in turns.
+
 The second-to-last line of standard output is {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Imports nothing of JAX or of fastplong_tpu.  Works in a temporary
@@ -225,27 +231,19 @@ def _rand_bases(rng, shape):
                       p=[.24, .24, .24, .24, .04])
 
 
-def phase_kernels(in_fq):
-    """Each kernel against its plain version at the main path's shapes
-    (the k-mer fill on the sample of in_fq, the headline input);
-    returns {name: record} for the JSON line (the main-path shape) and
-    prints the other shapes."""
+def phase_scan(bases):
+    """The mismatch scan against its plain version, exactly, on rows of
+    bases ([1024, 8192] on the card): the main path's 28 and 23 bp
+    adapters, 33 bp (two Myers words), 300 bp, and the int32 path at 700
+    and 2,000 bp; times by CUDA graph and events, the plain time, the
+    bound and a one-hot conv1d as the library call.  Returns the 28 bp
+    record."""
     import numpy as np
     import torch
-    from fastplong_tpu_torch.ops.adapter import (AdapterSpec, seed_scan,
-                                                 seed_scan_plain)
     from fastplong_tpu_torch.ops.mismatch import (mismatch_scan,
                                                   mismatch_scan_plain)
-    from fastplong_tpu_torch.ops.myers import (myers_verify,
-                                               myers_verify_pair,
-                                               myers_verify_plain,
-                                               pattern_table)
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    rec = {}
-
-    # ---- kernel 1: mismatch scan
-    bases = torch.from_numpy(_rand_bases(rng, (1024, 8192))).to(dev)
+    dev = bases.device
+    first = None
     for label, seq, rows in (("28 bp", START, 1024), ("23 bp", END, 1024),
                              ("33 bp", TRUSEQ, 1024),
                              ("300 bp", (START * 11)[:300], 256),
@@ -270,7 +268,30 @@ def phase_kernels(in_fq):
                  max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
                  bound_ms=bms, bound_by=by, library_ms=lib)
         log("phase 3: " + json.dumps(r))
-        rec.setdefault("mismatch_scan", r)
+        first = first or r
+    return first
+
+
+def phase_kernels(in_fq):
+    """Each kernel against its plain version at the main path's shapes
+    (the k-mer fill on the sample of in_fq, the headline input);
+    returns {name: record} for the JSON line (the main-path shape) and
+    prints the other shapes."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.ops.adapter import (AdapterSpec, seed_scan,
+                                                 seed_scan_plain)
+    from fastplong_tpu_torch.ops.myers import (myers_verify,
+                                               myers_verify_pair,
+                                               myers_verify_plain,
+                                               pattern_table)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    rec = {}
+
+    # ---- kernel 1: mismatch scan
+    bases = torch.from_numpy(_rand_bases(rng, (1024, 8192))).to(dev)
+    rec["mismatch_scan"] = phase_scan(bases)
 
     # ---- kernel 2: Myers verify (trim verifies at T = alen <= 200, middle
     # search at T = alen; the largest pattern, K = 20, at T = 640), then
@@ -2169,17 +2190,23 @@ def main():
         return 2
     sys.path.insert(0, here)
     torch.backends.cudnn.allow_tf32 = False
-    walls_only = sys.argv[1:] == ["--walls"]
-    if sys.argv[1:] and not walls_only:
-        sys.stderr.write("usage: chip_smoke.py [--walls]\n")
+    mode = sys.argv[1:]
+    if mode not in ([], ["--walls"], ["--scan"]):
+        sys.stderr.write("usage: chip_smoke.py [--walls | --scan]\n")
         return 2
     workdir = tempfile.mkdtemp(prefix="fastplong_chip_smoke_")
     try:
         card = phase_device()
         phase_build()
-        if walls_only:
+        if mode == ["--walls"]:
             launches, kind, _ = phase_cli(workdir, walls_only=True)
             print(json.dumps({"walls_of": here, "launches": launches}))
+            return 0
+        if mode == ["--scan"]:
+            import numpy as np
+            phase_scan(torch.from_numpy(_rand_bases(
+                np.random.default_rng(SEED), (1024, 8192))).to("cuda"))
+            print(json.dumps({"scan_of": here}))
             return 0
         rec = phase_kernels(headline_input(workdir)[0])
         phase_step()

@@ -7,18 +7,26 @@
 // uint8 output when alen <= 255, int32 above.
 //
 // Bound on an H100: every input byte is read once and every output byte
-// written once, so the floor is the bytes (2 B per position at uint8 out).
-// A compare loop costs three instructions per adapter byte per output
-// (about 84 per output at 28 bp) and is bound by instruction issue
-// instead.  The uint8 path therefore counts bit-parallel, 32 positions to a
-// 32-bit word:
+// written once, so the floor is the bytes (2 B per position at uint8 out,
+// 5 B at int32 out) up to about 1,000 bp, and the alen byte compares per
+// position at the int8 peak above.  A compare loop costs three
+// instructions per adapter byte per output and is bound by instruction
+// issue.  So one kernel, for both output types, counts bit-parallel, 32
+// positions to a 32-bit word:
 //
-//   * loads: a block owns W = blockDim.x words of 32 positions of one row;
-//     thread t loads word t into registers as two 16-byte loads (bytes past
-//     L become 0).  The first (alen - 1) / 32 + 1 threads also load one
-//     halo word past the tile, unless the tile reaches the row's end (as
-//     every tile of the main path's [*, 8192] rows does): its halo is
-//     zero bytes, whose planes are constants;
+//   * slots: while the first row's loads are in flight, every warp marks
+//     the bytes of its 32-position chunks of the adapter in a 256-bit set
+//     (one shared atomic per distinct byte of a chunk); a byte's plane slot
+//     is its rank in the set, and every thread fills a share of the
+//     positions' tables: the offset of its plane word (4 B) and its plane
+//     pass (1 B);
+//   * loads: a block owns a tile of W words of 32 positions of one row;
+//     the thread of word t loads it into registers as two 16-byte loads
+//     (bytes past L become 0).  The H = (alen - 1) / 32 + 1 halo words past
+//     the tile are loaded by threads k, k + W, ... (more than one word each
+//     only above 8,192 bp), unless the tile reaches the row's end (as every
+//     tile of the main path's [*, 8192] rows does): its halo is zero bytes,
+//     whose planes are constants;
 //   * mismatch planes: for each distinct adapter byte c, a thread turns its
 //     32 bytes into a 32-bit mask (bit k set iff byte k != c) with SIMD
 //     byte arithmetic on 4-byte words (an exact nonzero-byte test; the
@@ -30,26 +38,47 @@
 //     than eight takes several passes.  (Warp votes, __ballot_sync per byte
 //     value, cost more here: a vote, a compare and a select per 32
 //     positions per byte value, plus the shared-memory staging they need.)
-//   * counting: thread t owns output word t.  For adapter position i the
-//     mismatch bits of its 32 outputs are the plane of adapter[i] shifted
-//     by i (__funnelshift_r over two plane words); a bit-sliced counter
-//     adds them eight at a time through a carry-save tree (seven adders of
-//     two operations each, then one carry rippling up from level 3);
-//   * output: the counter planes are spread to bytes four at a time (a
-//     multiply puts four bits into four bytes) and each thread stores its
-//     32 bytes as two 16-byte stores (neighbouring threads, neighbouring
-//     addresses).
+//   * counting: for adapter position i the mismatch bits of a word's 32
+//     outputs are the plane of adapter[i] shifted by i (__funnelshift_r over
+//     two plane words); a bit-sliced counter of NLEV levels, NLEV the bit
+//     length of alen (1-8 for uint8 output, 9-15 for int32), adds them
+//     eight at a time through a carry-save tree (seven adders of two
+//     operations each).  Over whole 32-position chunks the shifts are
+//     constants and the level-3 carries of two groups of eight meet in one
+//     more adder before a carry ripples up from level 4; the rest go eight
+//     at a time (a ripple from level 3), then one at a time.  At uint8 one
+//     thread counts a word.  At int32 two do, each over half of the
+//     adapter, and the second hands its counter through shared memory to
+//     the first, which adds it (a ripple-carry adder, NLEV levels): a
+//     [256, 8192] batch then gives an SM 32 warps, not 16.  The count's two
+//     4-byte plane loads per position and word (about 31 cycles of an
+//     SM's shared-memory bandwidth per adapter position at [256, 8192])
+//     are what bounds it there; loading each distinct byte's pair once per
+//     32 positions would cut them;
+//   * output: the counter planes are spread to bytes four positions at a
+//     time (a multiply puts four bits into four bytes), levels 0-7 into one
+//     word and 8-14 into another.  At uint8 a thread stores its 32 bytes
+//     as two 16-byte stores; at int32 one byte permute a position joins the
+//     two bytes into its count and the thread stores its 32 counts as eight
+//     16-byte stores (neighbouring threads, neighbouring 128-byte runs).
+//
+// Shared memory, dynamic, per block: the planes, kGroup x (W + H) words;
+// at int32 the second threads' counters, NLEV x W words; the positions'
+// tables, 5 B each.  With W = 256 that is 8.2 KB at 28 bp, 22.1 KB at
+// 700 bp, 30.7 KB at 2,000 bp and 215 KB at the longest adapter taken,
+// 32,767 bp (NLEV = 15); above 48 KB the launch raises the instance's
+// limit first, and fewer blocks then sit on an SM.  Indices are int:
+// positions up to L + 32 (W + H) must fit (the wrapper checks).
 //
 // Streaming: with one row per block every block of the single wave would
 // load, count and store in lockstep, leaving the memory idle while the SMs
-// count.  So four blocks of 256 threads (up to 64 registers each, 10 KB of
-// shared memory) sit on each SM, and a block scans its tile of enough rows
-// for one wave (two at [1024, 8192] on 132 SMs), loading the next row's
-// words while it counts one and storing while it counts the next.
-//
-// The int32 path (alen > 255) is off the main path and keeps the compare
-// loop: the adapter and a tile of 1024 positions plus halo in shared memory,
-// four counters per thread.
+// count.  So 1,024 threads sit on each SM (__launch_bounds__: four blocks
+// of 256 at uint8, two of 512 at int32, so every instance gets at most 64
+// registers; `-Xptxas -v` reports each instance's registers and spills),
+// and a block scans its tile of enough rows for one wave of the blocks
+// an SM holds (two rows at [1024, 8192] on 132 SMs).  At uint8 it loads
+// the next row's words while it counts one; at int32 those registers go
+// to the deeper counter.
 
 #include <algorithm>
 #include <cstdint>
@@ -58,9 +87,11 @@
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMaxWords = 256;   // words per block on the uint8 path
+constexpr int kMaxWords = 256;   // words (threads) per block
 constexpr int kGroup = 8;        // distinct adapter bytes per plane pass
 constexpr int kBlocksPerSM = 4;  // resident blocks of kMaxWords threads
+constexpr int kMaxLevels = 15;   // counter depth of the longest adapter
+constexpr int kDefaultSmem = 48 * 1024;   // dynamic shared memory unasked
 
 // the 32 bytes of word `word` of a row, bytes past L read as 0
 __device__ __forceinline__ void load_word(const uint8_t* src, int L,
@@ -117,6 +148,16 @@ __device__ __forceinline__ uint32_t mismatch_bits(const uint32_t (&e)[8],
                      __byte_perm(top[2], top[3], 0x0073), 0x5410);
 }
 
+// the planes of the 32 bytes of one word for the nd distinct bytes
+// dist[0 .. nd), stored nw words apart from plane
+__device__ __forceinline__ void store_planes(uint32_t (&w)[8],
+                                             const uint8_t* dist, int nd,
+                                             uint32_t* plane, int nw) {
+  split_even_odd(w);
+  for (int d = 0; d < nd; ++d)
+    plane[d * nw] = mismatch_bits(w, dist[d] * 0x01010101u);
+}
+
 // acc + a + b = acc' + 2 * carry, bit by bit (a carry-save adder)
 __device__ __forceinline__ uint32_t csa(uint32_t& acc, uint32_t a,
                                         uint32_t b) {
@@ -139,6 +180,13 @@ __device__ __forceinline__ void ripple(uint32_t (&C)[NLEV], int k0,
   }
 }
 
+// the number of bytes below c in the 256-bit set `seen`
+__device__ __forceinline__ int byte_rank(const uint32_t* seen, int c) {
+  int r = c < 256 ? __popc(seen[c >> 5] & ((1u << (c & 31)) - 1u)) : 0;
+  for (int j = 0; j < (c >> 5); ++j) r += __popc(seen[j]);
+  return r;
+}
+
 // the plane word pair of adapter position i: s_off holds byte offsets
 __device__ __forceinline__ const uint32_t* at(const uint32_t* planes,
                                               int off) {
@@ -146,112 +194,214 @@ __device__ __forceinline__ const uint32_t* at(const uint32_t* planes,
       reinterpret_cast<const char*>(planes) + off);
 }
 
-// adds the mismatch bits of every adapter position to the counter C.  The
-// bits of position i are the plane word pair at(planes, s_off[i]), shifted
-// by i.  Groups of eight positions go through a carry-save tree (seven
-// adders, two operations each) before one carry ripples up from level 3.
+// adds the mismatch bits of adapter positions i .. i + 7, shifted by s0 ..
+// s0 + 7 (s0 = i % 32), to levels 0-2 of the counter C through a
+// carry-save tree (seven adders, two operations each); returns the carry
+// into level 3.  The bits of position i are the plane word pair
+// at(planes, s_off[i]), shifted by i.
+template <int NLEV>
+__device__ __forceinline__ uint32_t add8(uint32_t (&C)[NLEV],
+                                         const uint32_t* planes,
+                                         const int* s_off, int i, int s0) {
+  const int4 o0 = *reinterpret_cast<const int4*>(s_off + i);
+  const int4 o1 = *reinterpret_cast<const int4*>(s_off + i + 4);
+  const int off[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+  uint32_t x[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const uint32_t* p = at(planes, off[u]);
+    x[u] = __funnelshift_r(p[0], p[1], s0 + u);
+  }
+  const uint32_t c1a = csa(C[0], x[0], x[1]);
+  const uint32_t c1b = csa(C[0], x[2], x[3]);
+  const uint32_t c1c = csa(C[0], x[4], x[5]);
+  const uint32_t c1d = csa(C[0], x[6], x[7]);
+  const uint32_t c2a = csa(C[1], c1a, c1b);
+  const uint32_t c2b = csa(C[1], c1c, c1d);
+  return csa(C[2], c2a, c2b);
+}
+
+// adds the mismatch bits of adapter positions i .. end - 1 (i a multiple
+// of 32) to the counter C.  Over whole 32-position chunks the shifts are
+// constants and the level-3 carries of two groups of eight meet in one
+// more adder before a carry ripples up from level 4; then groups of eight
+// (a ripple from level 3), then single positions.
 template <int NLEV>
 __device__ __forceinline__ void count_all(uint32_t (&C)[NLEV],
                                           const uint32_t* planes,
-                                          const int* s_off, int alen) {
-  int i = 0;
-  if constexpr (NLEV >= 4) {
-    for (; i + 8 <= alen; i += 8) {
-      const int4 o0 = *reinterpret_cast<const int4*>(s_off + i);
-      const int4 o1 = *reinterpret_cast<const int4*>(s_off + i + 4);
-      const int off[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
-      uint32_t x[8];
+                                          const int* s_off, int i, int end) {
+  if constexpr (NLEV >= 6) {
+    for (; i + 32 <= end; i += 32) {
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const uint32_t* p = at(planes, off[u]);
-        x[u] = __funnelshift_r(p[0], p[1], (i + u) & 31);
+      for (int h = 0; h < 32; h += 16) {
+        const uint32_t c3a = add8(C, planes, s_off, i + h, h);
+        const uint32_t c3b = add8(C, planes, s_off, i + h + 8, h + 8);
+        ripple(C, 4, csa(C[3], c3a, c3b));
       }
-      const uint32_t c1a = csa(C[0], x[0], x[1]);
-      const uint32_t c1b = csa(C[0], x[2], x[3]);
-      const uint32_t c1c = csa(C[0], x[4], x[5]);
-      const uint32_t c1d = csa(C[0], x[6], x[7]);
-      const uint32_t c2a = csa(C[1], c1a, c1b);
-      const uint32_t c2b = csa(C[1], c1c, c1d);
-      ripple(C, 3, csa(C[2], c2a, c2b));
     }
   }
-  for (; i < alen; ++i) {
+  if constexpr (NLEV >= 4) {
+    for (; i + 8 <= end; i += 8)
+      ripple(C, 3, add8(C, planes, s_off, i, i & 31));
+  }
+  for (; i < end; ++i) {
     const uint32_t* p = at(planes, s_off[i]);
     ripple(C, 0, __funnelshift_r(p[0], p[1], i & 31));
   }
 }
 
-// NLEV: bit length of alen (the counter's depth), 1..8.  Block (x, y)
-// scans tile x of rows [y * rows_per_block, ...).
+// C += the counter whose level k is p[k * stride] (a ripple-carry adder;
+// the sum fits in NLEV levels)
 template <int NLEV>
-__global__ void __launch_bounds__(kMaxWords, kBlocksPerSM)
+__device__ __forceinline__ void add_counter(uint32_t (&C)[NLEV],
+                                            const uint32_t* p, int stride) {
+  uint32_t carry = 0u;
+#pragma unroll
+  for (int k = 0; k < NLEV; ++k) {
+    const uint32_t a = C[k], b = p[k * stride];
+    C[k] = a ^ b ^ carry;
+    carry = (a & b) | (carry & (a ^ b));
+  }
+}
+
+// bits K0 .. K0 + 7 (those below NLEV) of the counts of positions 4q ..
+// 4q + 3, one byte each
+template <int K0, int NLEV>
+__device__ __forceinline__ uint32_t spread4(const uint32_t (&C)[NLEV],
+                                            int q) {
+  uint32_t acc = 0u;
+#pragma unroll
+  for (int k = K0; k < NLEV && k < K0 + 8; ++k) {
+    const uint32_t nib = (C[k] >> (4 * q)) & 0xFu;
+    acc |= ((nib * 0x00204081u) & 0x01010101u) << (k - K0);
+  }
+  return acc;
+}
+
+// the counts of the counter C's 32 positions into dst[0 .. n)
+template <int NLEV>
+__device__ __forceinline__ void store_counts(const uint32_t (&C)[NLEV],
+                                             uint8_t* dst, int n) {
+  uint32_t o[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) o[q] = spread4<0>(C, q);
+  if (n == 32 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 32; ++q)
+      if (q < n) dst[q] = static_cast<uint8_t>(o[q >> 2] >> (8 * (q & 3)));
+  }
+}
+
+template <int NLEV>
+__device__ __forceinline__ void store_counts(const uint32_t (&C)[NLEV],
+                                             int32_t* dst, int n) {
+  const bool vec = n == 32 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t lo = spread4<0>(C, q), hi = spread4<8>(C, q);
+    uint32_t v[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)   // byte m of lo, then byte m of hi
+      v[m] = __byte_perm(lo, hi, 0x40 + 0x11 * m) & 0xFFFFu;
+    if (vec) {
+      reinterpret_cast<uint4*>(dst)[q] = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (4 * q + m < n) dst[4 * q + m] = static_cast<int32_t>(v[m]);
+    }
+  }
+}
+
+// threads per output word: the int32 path splits the adapter positions
+// between two, so that a batch of a few hundred rows still gives each SM
+// 32 warps
+template <typename T>
+constexpr int kParts = sizeof(T) == 1 ? 1 : 2;
+
+// T: the output type, uint8_t (alen <= 255) or int32_t; NLEV: bit length
+// of alen (the counter's depth).  Block (x, y) scans tile x, of
+// blockDim.x / kParts<T> words, of rows [y * rows_per_block, ...).
+template <typename T, int NLEV>
+__global__ void __launch_bounds__(kMaxWords * kParts<T>,
+                                  kBlocksPerSM / kParts<T>)
     mismatch_bits_kernel(const uint8_t* __restrict__ bases, int B, int L,
                          const uint8_t* __restrict__ adapter, int alen,
-                         int rows_per_block, uint8_t* __restrict__ out) {
-  __shared__ __align__(16) int s_off[256];   // its plane word, in bytes
-  __shared__ uint8_t s_grp[256];     // plane pass of adapter position i
-  __shared__ uint8_t s_dist[256];    // distinct adapter bytes
-  __shared__ int s_ndist;
-  extern __shared__ uint32_t s_plane[];   // [kGroup][NW]
-  const int W = blockDim.x;
+                         int rows_per_block, T* __restrict__ out) {
+  static_assert(NLEV <= (sizeof(T) == 1 ? 8 : kMaxLevels), "counter depth");
+  constexpr int P = kParts<T>;
+  static_assert(P == 1 || P == 2, "one or two threads a word");
+  __shared__ uint8_t s_dist[256];    // distinct adapter bytes, in order
+  __shared__ uint32_t s_seen[8];     // the set of adapter bytes
+  extern __shared__ __align__(16) uint32_t s_plane[];   // [kGroup][NW]
+  const int NT = blockDim.x;
+  const int W = NT / P;
   const int tid = threadIdx.x;
-  const int H = ((alen - 1) >> 5) + 1;   // halo words past the tile
+  const int part = P == 1 ? 0 : tid / W;   // which share of the positions
+  const int tw = tid - part * W;           // which word of the tile
+  const int H = ((alen - 1) >> 5) + 1;     // halo words past the tile
   const int NW = W + H;
+  // after the planes: part 1's counters ([NLEV][W], at int32), then each
+  // adapter position's plane word, in bytes, and its plane pass
+  uint32_t* s_part = s_plane + kGroup * NW;
+  int* s_off = reinterpret_cast<int*>(s_part + (P - 1) * NLEV * W);
+  uint8_t* s_grp = reinterpret_cast<uint8_t*>(s_off + alen);
   const int w0 = blockIdx.x * W;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(r0 + rows_per_block, B);
-  const bool halo = tid < H;
   // a tile that reaches the row's end has only zero bytes in its halo
   const bool tail = (w0 + W) * 32 >= L;
-  const bool load_halo = halo && !tail;
+  // part 0 loads and counts the tile's words, the last part the halo
+  const int hk = tid - (P - 1) * W;
+  const int ib = part == 0 ? 0 : (alen / 2) & ~31;
+  const int ie = part == P - 1 ? alen : (alen / 2) & ~31;
 
-  uint32_t w[8], h[8];
-  load_word(bases + static_cast<int64_t>(r0) * L, L, w0 + tid, w);
-  if (load_halo) load_word(bases + static_cast<int64_t>(r0) * L, L,
-                           w0 + W + tid, h);
+  uint32_t w[8];
+  if (part == 0)
+    load_word(bases + static_cast<int64_t>(r0) * L, L, w0 + tw, w);
 
-  // ---- while the loads are in flight, warp 0 gives each distinct adapter
-  // byte a plane slot, in order of first appearance, 32 positions at a
-  // time: a byte seen in an earlier chunk keeps its slot; the new ones are
-  // grouped by __match_any_sync and numbered by their first lane
-  if (tid < 32) {
-    int nd = 0;
-    for (int i0 = 0; i0 < alen; i0 += 32) {
-      const int i = i0 + tid;
-      const bool in = i < alen;
-      const int c = in ? __ldg(adapter + i) : 256 + tid;   // unmatched
-      int slot = -1;
-      for (int d = 0; d < nd; ++d)
-        if (s_dist[d] == c) slot = d;
-      const int lead = __ffs(__match_any_sync(kFull, c)) - 1;
-      const unsigned fresh = __ballot_sync(kFull, in && slot < 0 &&
-                                                      lead == tid);
-      if (slot < 0) {
-        slot = nd + __popc(fresh & ((1u << lead) - 1u));
-        if (in && lead == tid) s_dist[slot] = static_cast<uint8_t>(c);
-      }
-      if (in) {
-        s_off[i] = 4 * ((slot % kGroup) * NW + (i >> 5));
-        s_grp[i] = static_cast<uint8_t>(slot / kGroup);
-      }
-      nd += __popc(fresh);
-      __syncwarp();
-    }
-    if (tid == 0) s_ndist = nd;
+  // ---- while the loads are in flight, every warp marks the bytes of its
+  // 32-position chunks of the adapter in a 256-bit set (one shared atomic
+  // per distinct byte of a chunk, by its first lane); a byte's plane slot
+  // is its rank in the set, so that every thread can fill the tables of a
+  // share of the positions
+  if (tid < 8) s_seen[tid] = 0u;
+  __syncthreads();
+  const int lane = tid & 31;
+  for (int i0 = tid - lane; i0 < alen; i0 += NT) {
+    const bool in = i0 + lane < alen;
+    const int c = in ? __ldg(adapter + i0 + lane) : 256;
+    const unsigned same = __match_any_sync(kFull, c);
+    if (in && lane == __ffs(same) - 1)
+      atomicOr(&s_seen[c >> 5], 1u << (c & 31));
   }
   __syncthreads();
-  const int ndist = s_ndist;
+  for (int i = tid; i < alen; i += NT) {
+    const int slot = byte_rank(s_seen, __ldg(adapter + i));
+    s_off[i] = 4 * ((slot % kGroup) * NW + (i >> 5));
+    s_grp[i] = static_cast<uint8_t>(slot / kGroup);
+  }
+  for (int c = tid; c < 256; c += NT)
+    if ((s_seen[c >> 5] >> (c & 31)) & 1u)
+      s_dist[byte_rank(s_seen, c)] = static_cast<uint8_t>(c);
+  const int ndist = byte_rank(s_seen, 256);
+  __syncthreads();
   const int ngroups = (ndist + kGroup - 1) / kGroup;
-  const int word = w0 + tid;            // this thread's output word
+  const int word = w0 + tw;             // this thread's output word
   const bool live = word * 32 < L;
 
   for (int row = r0; row < r1; ++row) {
     const uint8_t* src = bases + static_cast<int64_t>(row) * L;
-    // the next row's words are in flight while this row is counted
-    uint32_t wn[8], hn[8];
-    if (row + 1 < r1) {
-      load_word(src + L, L, w0 + tid, wn);
-      if (load_halo) load_word(src + L, L, w0 + W + tid, hn);
+    // at uint8 the next row's words are in flight while this row is
+    // counted; at int32 their registers go to the deeper counter
+    uint32_t wn[8];
+    if constexpr (P == 1) {
+      if (row + 1 < r1) load_word(src + L, L, w0 + tw, wn);
+    } else if (row > r0 && part == 0) {
+      load_word(src, L, w0 + tw, w);
     }
     uint32_t C[NLEV];
 #pragma unroll
@@ -259,140 +409,101 @@ __global__ void __launch_bounds__(kMaxWords, kBlocksPerSM)
     for (int g = 0; g < ngroups; ++g) {
       if (g > 0) {   // a row's registers are not kept across the counting
         __syncthreads();   // the previous pass is done with the planes
-        load_word(src, L, w0 + tid, w);
-        if (load_halo) load_word(src, L, w0 + W + tid, h);
+        if (part == 0) load_word(src, L, w0 + tw, w);
       }
-      split_even_odd(w);
-      if (load_halo) split_even_odd(h);
       const int nd = min(kGroup, ndist - g * kGroup);
-      for (int d = 0; d < nd; ++d) {
-        const uint32_t c = s_dist[g * kGroup + d];
-        s_plane[d * NW + tid] = mismatch_bits(w, c * 0x01010101u);
-        if (halo)
-          s_plane[d * NW + W + tid] =
-              tail ? (c != 0 ? 0xFFFFFFFFu : 0u)
-                   : mismatch_bits(h, c * 0x01010101u);
+      const uint8_t* dist = s_dist + g * kGroup;
+      if (part == 0) store_planes(w, dist, nd, s_plane + tw, NW);
+      for (int k = hk; k >= 0 && k < H; k += W) {
+        if (tail) {
+          for (int d = 0; d < nd; ++d)
+            s_plane[d * NW + W + k] = dist[d] != 0 ? 0xFFFFFFFFu : 0u;
+        } else {
+          uint32_t h[8];
+          load_word(src, L, w0 + W + k, h);
+          store_planes(h, dist, nd, s_plane + W + k, NW);
+        }
       }
       __syncthreads();
       if (live) {
         if (ngroups == 1) {
-          count_all<NLEV>(C, s_plane + tid, s_off, alen);
+          count_all<NLEV>(C, s_plane + tw, s_off, ib, ie);
         } else {
-          for (int i = 0; i < alen; ++i) {
+          for (int i = ib; i < ie; ++i) {
             if (s_grp[i] != g) continue;
-            const uint32_t* p = at(s_plane + tid, s_off[i]);
+            const uint32_t* p = at(s_plane + tw, s_off[i]);
             ripple(C, 0, __funnelshift_r(p[0], p[1], i & 31));
           }
         }
       }
     }
 
-    // ---- counter planes -> one byte per position
-    if (live) {
-      uint32_t o[8];
+    // ---- part 1's counter added into part 0's, then one count a position
+    if constexpr (P == 2) {
+      if (part == 1 && live) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        uint32_t acc = 0u;
-#pragma unroll
-        for (int k = 0; k < NLEV; ++k) {
-          const uint32_t nib = (C[k] >> (4 * q)) & 0xFu;
-          acc |= ((nib * 0x00204081u) & 0x01010101u) << k;
-        }
-        o[q] = acc;
+        for (int k = 0; k < NLEV; ++k) s_part[k * W + tw] = C[k];
       }
-      uint8_t* dst = out + static_cast<int64_t>(row) * L + word * 32;
-      if (word * 32 + 32 <= L &&
-          (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-        reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-        reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
-      } else {
-        for (int q = 0; q < 32 && word * 32 + q < L; ++q)
-          dst[q] = static_cast<uint8_t>(o[q >> 2] >> (8 * (q & 3)));
-      }
+      __syncthreads();
+      if (part == 0 && live) add_counter(C, s_part + tw, W);
     }
+    if (part == 0 && live)
+      store_counts(C, out + static_cast<int64_t>(row) * L + word * 32,
+                   min(32, L - word * 32));
     __syncthreads();   // the next row rewrites the planes
+    if constexpr (P == 1) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      w[q] = wn[q];
-      h[q] = hn[q];
+      for (int q = 0; q < 8; ++q) w[q] = wn[q];
     }
   }
 }
 
-// ---- int32 output (alen > 255): the compare loop
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kTile = kThreads * kPerThread;
-
-__global__ void mismatch_loop_kernel(const uint8_t* __restrict__ bases,
-                                     int L,
-                                     const uint8_t* __restrict__ adapter,
-                                     int alen, int32_t* __restrict__ out) {
-  extern __shared__ uint8_t smem[];
-  uint8_t* s_ad = smem;
-  uint8_t* s_row = smem + alen;
-  const int64_t row = blockIdx.y;
-  const int p0 = blockIdx.x * kTile;
-  const uint8_t* src = bases + row * L;
-  for (int i = threadIdx.x; i < alen; i += kThreads) s_ad[i] = adapter[i];
-  const int span = kTile + alen - 1;
-  for (int i = threadIdx.x; i < span; i += kThreads) {
-    const int p = p0 + i;
-    s_row[i] = p < L ? src[p] : 0;
-  }
-  __syncthreads();
-
-  int acc[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) acc[k] = 0;
-  for (int i = 0; i < alen; ++i) {
-    const uint8_t a = s_ad[i];
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k)
-      acc[k] += s_row[k * kThreads + threadIdx.x + i] != a;
-  }
-  int32_t* dst = out + row * L;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int p = p0 + k * kThreads + threadIdx.x;
-    if (p < L) dst[p] = acc[k];
-  }
-}
-
-// rows per block: enough blocks for one wave over the card's SMs, each
-// block then streams its rows, loading the next while it counts one.  The
-// SM count is kept per device (the launch's device is the current one,
-// ops/cuda_lib.py:launch), so cards of different types each get theirs
+// the SM count of the current device (the launch's, ops/cuda_lib.py:launch),
+// kept per device so that cards of different types each get theirs
 constexpr int kMaxDevices = 64;
 
-int rows_per_block(int blocks_per_row, int B) {
+int sm_count() {
   static int sms_of[kMaxDevices] = {};
   int dev = 0;
-  int sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kMaxDevices) {
-    if (sms_of[dev] == 0 &&
-        cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount,
-                               dev) != cudaSuccess)
-      sms_of[dev] = 132;
-    sms = sms_of[dev];
-  }
-  const long slots = static_cast<long>(sms) * kBlocksPerSM;
-  const long need = static_cast<long>(blocks_per_row) * B;
-  return static_cast<int>(std::max(1L, (need + slots - 1) / slots));
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 132;
+  if (sms_of[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms_of[dev] = 132;
+  return sms_of[dev];
 }
 
-template <int NLEV>
-void launch_bits(const uint8_t* b, int B, int L, const uint8_t* a, int alen,
-                 uint8_t* out, cudaStream_t s) {
-  const int words = (L + 31) / 32;
+// Tiles of up to 256 words, and rows per block: enough blocks for one
+// wave of the blocks an SM holds, each streaming its rows.
+template <typename T, int NLEV>
+cudaError_t launch_bits(const uint8_t* b, int B, int L, const uint8_t* a,
+                        int alen, T* out, cudaStream_t s) {
+  constexpr int P = kParts<T>;
+  const int words = (L - 1) / 32 + 1;
   const int W = std::min(kMaxWords, (words + 31) / 32 * 32);
   const int NW = W + ((alen - 1) >> 5) + 1;
-  const size_t smem = static_cast<size_t>(NW) * kGroup * 4;
+  const size_t smem = (static_cast<size_t>(NW) * kGroup +
+                       static_cast<size_t>(P - 1) * NLEV * W) * 4 +
+                      static_cast<size_t>(alen) * (sizeof(int) + 1);
+  auto* kernel = mismatch_bits_kernel<T, NLEV>;
+  cudaError_t e = cudaSuccess;
+  if (smem > kDefaultSmem)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  int per_sm = 1;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * P,
+                                                      smem);
+  if (e != cudaSuccess) return e;
   const int tiles = (words + W - 1) / W;
-  const int rows = rows_per_block(tiles, B);
+  const long slots = static_cast<long>(sm_count()) * std::max(1, per_sm);
+  const long need = static_cast<long>(tiles) * B;
+  const int rows = static_cast<int>(std::max(1L, (need + slots - 1) / slots));
   const dim3 grid(tiles, (B + rows - 1) / rows);
-  mismatch_bits_kernel<NLEV><<<grid, W, smem, s>>>(b, B, L, a, alen, rows,
-                                                   out);
+  kernel<<<grid, W * P, smem, s>>>(b, B, L, a, alen, rows, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -403,28 +514,29 @@ extern "C" int fpl_mismatch_scan(const void* bases, int B, int L,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* b = static_cast<const uint8_t*>(bases);
   const uint8_t* a = static_cast<const uint8_t*>(adapter);
-  if (alen <= 0 || B <= 0 || L <= 0)
+  if (alen <= 0 || B <= 0 || L <= 0 || (alen <= 255) != (out_u8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (out_u8) {
-    if (alen > 255) return static_cast<int>(cudaErrorInvalidValue);
-    uint8_t* o = static_cast<uint8_t*>(out);
-    const int nlev = 32 - __builtin_clz(static_cast<unsigned>(alen));
-    switch (nlev) {
-#define FPL_BITS_CASE(n) \
-  case n:                \
-    launch_bits<n>(b, B, L, a, alen, o, s); \
+  const int nlev = 32 - __builtin_clz(static_cast<unsigned>(alen));
+  uint8_t* o8 = static_cast<uint8_t*>(out);
+  int32_t* o32 = static_cast<int32_t*>(out);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (nlev) {
+#define FPL_U8(n) \
+  case n:         \
+    e = launch_bits<uint8_t, n>(b, B, L, a, alen, o8, s); \
     break;
-      FPL_BITS_CASE(1) FPL_BITS_CASE(2) FPL_BITS_CASE(3) FPL_BITS_CASE(4)
-      FPL_BITS_CASE(5) FPL_BITS_CASE(6) FPL_BITS_CASE(7) FPL_BITS_CASE(8)
-#undef FPL_BITS_CASE
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    const dim3 grid((L + kTile - 1) / kTile, B);
-    const size_t smem = 2 * static_cast<size_t>(alen) + kTile;
-    mismatch_loop_kernel<<<grid, kThreads, smem, s>>>(
-        b, L, a, alen, static_cast<int32_t*>(out));
+#define FPL_I32(n) \
+  case n:          \
+    e = launch_bits<int32_t, n>(b, B, L, a, alen, o32, s); \
+    break;
+    FPL_U8(1) FPL_U8(2) FPL_U8(3) FPL_U8(4)
+    FPL_U8(5) FPL_U8(6) FPL_U8(7) FPL_U8(8)
+    FPL_I32(9) FPL_I32(10) FPL_I32(11) FPL_I32(12)
+    FPL_I32(13) FPL_I32(14) FPL_I32(15)
+#undef FPL_U8
+#undef FPL_I32
+    default:
+      break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

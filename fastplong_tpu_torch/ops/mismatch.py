@@ -11,8 +11,9 @@ import torch
 
 from . import cuda_lib
 
-_MAX_SMEM = 48 * 1024     # static launch limit of the kernel's tile + halo
-_TILE = 1024
+_MAX_ALEN = 2 ** 15 - 1   # the deepest counter the kernel has, 15 levels
+_MAX_INT = 2 ** 31 - 1    # B and every position the kernel indexes are ints
+_MAX_TILE = 32 * 256      # positions in one block's tile
 
 
 def out_dtype(alen):
@@ -32,6 +33,14 @@ def mismatch_scan_plain(bases, adapter):
     return mm
 
 
+def shape_ok(B, L, alen):
+    """Whether the kernel takes [B, L] bases and an alen-byte adapter:
+    alen from 1 to 32,767, and B and each position up to the end of the
+    last tile's halo (L + one tile + alen + 32) within a C int."""
+    return (0 < alen <= _MAX_ALEN and B <= _MAX_INT
+            and L + _MAX_TILE + alen + 32 <= _MAX_INT)
+
+
 def mismatch_scan(bases, adapter):
     """[B, L] uint8 bases x [alen] uint8 adapter -> [B, L] mismatch counts.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
@@ -42,9 +51,9 @@ def mismatch_scan(bases, adapter):
         raise ValueError("mismatch_scan takes uint8 bases and adapter")
     B, L = bases.shape
     alen = adapter.shape[0]
-    if alen == 0 or 2 * alen + _TILE > _MAX_SMEM or B > 65535:
-        raise ValueError("mismatch_scan: unsupported shape B=%d alen=%d"
-                         % (B, alen))
+    if not shape_ok(B, L, alen):
+        raise ValueError("mismatch_scan: unsupported shape B=%d L=%d "
+                         "alen=%d" % (B, L, alen))
     dt = out_dtype(alen)
     out = torch.empty((B, L), dtype=dt, device=bases.device)
     if B == 0 or L == 0:

@@ -72,12 +72,15 @@ ODD = np.frombuffer(b"ACGTNRYKMacgtn", np.uint8)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("alen", [1, 5, 23, 28, 31, 32, 33, 64, 200, 255,
-                                  256, 300, 700, 2000])
+                                  256, 300, 511, 512, 700, 1023, 1024, 2000,
+                                  2047, 2048, 4096, 8192, 8193, 23552])
 def test_mismatch_scan_shapes_on_card(card, alen):
     """The scan against its plain version for every L and B here, with
     zero padding at the end of short reads and non-ACGTN bytes; rows
     longer than one tile (L = 20000) and more rows than one wave holds
-    (B = 1100) reach the scan's halo loads and its rows-per-block loop."""
+    (B = 1100) reach the scan's halo loads and its rows-per-block loop.
+    The lengths cross each counter depth (255/256, 511/512, 1023/1024,
+    2047/2048), and above 8,192 bp the halo is longer than the tile."""
     from fastplong_tpu_torch.ops.mismatch import mismatch_scan_plain
     rng = np.random.default_rng(50 + alen)
     for odd in (False, True):
@@ -96,6 +99,47 @@ def test_mismatch_scan_shapes_on_card(card, alen):
             got = mismatch_scan(x, ad)
             torch.cuda.synchronize()
             assert torch.equal(got, mismatch_scan_plain(x, ad)), (L, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alen", [255, 256, 511, 4095, 8191, 16383, 23552,
+                                  32767])
+def test_mismatch_scan_top_count_on_card(card, alen):
+    """An adapter of one repeated byte over reads of another byte: every
+    count is alen, so the counter's top level is set everywhere; two
+    tiles a row, so the first tile's halo is loaded, not the zero one."""
+    x = torch.full((5, 9000), ord("C"), dtype=torch.uint8, device=card)
+    ad = torch.full((alen,), ord("A"), dtype=torch.uint8, device=card)
+    got = mismatch_scan(x, ad)
+    torch.cuda.synchronize()
+    want = torch.full((5, 9000), alen, dtype=torch.uint8 if alen <= 255
+                      else torch.int32, device=card)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alen", [28, 700])
+def test_mismatch_scan_many_rows_on_card(card, alen):
+    """More than 65,535 rows, in both output types."""
+    from fastplong_tpu_torch.ops.mismatch import mismatch_scan_plain
+    rng = np.random.default_rng(90 + alen)
+    x = torch.from_numpy(_bases(rng, (70000, 100))).to(card)
+    ad = torch.from_numpy(np.frombuffer(_adapter(rng, alen), np.uint8)
+                          .copy()).to(card)
+    got = mismatch_scan(x, ad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mismatch_scan_plain(x, ad))
+
+
+@pytest.mark.cuda
+def test_mismatch_scan_refuses_past_its_limits(card):
+    """No kernel instance counts past 32,767 bp: the wrapper refuses it,
+    and takes 32,767 bp."""
+    x = torch.full((2, 64), ord("A"), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        mismatch_scan(x, torch.zeros(32768, dtype=torch.uint8, device=card))
+    got = mismatch_scan(x, torch.ones(32767, dtype=torch.uint8, device=card))
+    assert torch.equal(got, torch.full_like(got, 32767))
 
 
 def _problem(rng, K, T, N, card):

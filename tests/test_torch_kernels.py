@@ -31,23 +31,44 @@ def _adapter(rng, n):
     return bytes(rng.choice(ACGTN[:4], size=n).tolist())
 
 
-@pytest.mark.parametrize("alen", [5, 23, 28, 200, 255, 256, 300, 640])
+@pytest.mark.parametrize("alen", [5, 23, 28, 200, 255, 256, 300, 511, 512,
+                                  640, 1024, 2048])
 def test_mismatch_scan_matches_jax(alen):
+    """Exact at each counter depth's edge: uint8 up to 255 bp, int32 above,
+    with counts from 0 (the planted adapter) up to alen."""
     rng = np.random.default_rng(alen)
     data = _adapter(rng, alen)
-    bases = _bases(rng, (3, 700))
+    # rows wide enough to hold the whole adapter above 640 bp
+    L = 700 if alen <= 640 else alen + 352
+    n = min(alen, L - 100)
+    bases = _bases(rng, (3, L))
     # plant the adapter (and a damaged copy) so low counts occur
-    bases[0, 40:40 + min(alen, 600)] = np.frombuffer(data, np.uint8)[:600]
-    bases[1, 10:10 + min(alen, 600)] = np.frombuffer(data, np.uint8)[:600]
+    bases[0, 40:40 + n] = np.frombuffer(data, np.uint8)[:n]
+    bases[1, 10:10 + n] = np.frombuffer(data, np.uint8)[:n]
     bases[1, 12] = ord("N")
     ref = np.asarray(jadapter._mismatch_full(jnp.asarray(bases), data))
     got = mismatch_scan(torch.from_numpy(bases),
                         torch.from_numpy(np.frombuffer(data, np.uint8).copy()))
     assert got.numpy().dtype == ref.dtype
+    assert ref.dtype == (np.uint8 if alen <= 255 else np.int32)
     np.testing.assert_array_equal(got.numpy(), ref)
+    if alen > 640:   # 0 at the planted copy; alen - 1 or more at the end
+        assert ref[0, 40] == 0 and ref[:, -1].min() >= alen - 1
     if alen <= 256:
         pl = np.asarray(pallas_scan(jnp.asarray(bases), data, interpret=True))
         np.testing.assert_array_equal(got.numpy().astype(np.int32), pl)
+
+
+def test_mismatch_scan_limits():
+    """The wrapper takes every adapter length up to the kernel's deepest
+    counter (32,767 bp), any row count, and refuses what would overflow
+    the kernel's int indices."""
+    from fastplong_tpu_torch.ops.mismatch import shape_ok
+    assert all(shape_ok(1024, 8192, a) for a in (1, 255, 256, 24064, 32767))
+    assert shape_ok(70000, 100, 700) and shape_ok(2 ** 31 - 1, 1, 28)
+    assert not shape_ok(1, 100, 0) and not shape_ok(1, 100, 32768)
+    assert not shape_ok(2 ** 31, 1, 28)
+    assert not shape_ok(1, 2 ** 31 - 8192, 28)
 
 
 @pytest.mark.parametrize("K", list(range(1, 21)))
