@@ -14,8 +14,9 @@ kernel, which adds into the run's accumulator, from a non-zero one over 1,
 scan in the break and mask forms and on an edge batch; the k-mer fill of
 adapter auto-detection on both sides of the headline input's sample and on
 an edge batch; the block-scan Myers kernel at 700, 2,000 and 5,000 bp;
-the mismatch scan's int32 path at 700 and 2,000 bp, with an fp32 one-hot
-conv1d as its library yardstick), checks the
+the mismatch scan's int32 path at 700 and 2,000 bp over 256 and 1,024
+rows and at phase 5f's launch shapes, with an fp32 one-hot conv1d as its
+library yardstick), checks the
 fused step on CUDA against the port's CPU step with the headline and the
 break-and-mask parameters, then drives the headline CLI (-s START -e END
 -5 -3 -x, both reports, --failed_out) on CUDA three times over a 64-Mbase
@@ -69,7 +70,9 @@ that two trees can be timed in turns in one run on one card.
 
 runs only the mismatch scan's block of phase 3 (every shape, parity with
 the plain version, graph and event times, bound, conv1d) on phase 3's
-bases and stops, for the same use: the scan of two trees in turns.
+bases, then phase 5f's 700-bp run once to warm it and once profiled (its
+device time and the scan kernel's time per launch), and stops, for the
+same use: the scan of two trees in turns.
 
 The second-to-last line of standard output is {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
@@ -231,25 +234,39 @@ def _rand_bases(rng, shape):
                       p=[.24, .24, .24, .24, .04])
 
 
+# the scan's launches in phase 5f's run ([rows, L] batches of its 300
+# reads, each scanned for the 700 bp adapter and its reverse complement)
+SCAN_5F_SHAPES = ((12, 1024), (25, 1536), (83, 2304), (97, 3456),
+                  (83, 5184))
+
+
 def phase_scan(bases):
     """The mismatch scan against its plain version, exactly, on rows of
     bases ([1024, 8192] on the card): the main path's 28 and 23 bp
-    adapters, 33 bp (two Myers words), 300 bp, and the int32 path at 700
-    and 2,000 bp; times by CUDA graph and events, the plain time, the
-    bound and a one-hot conv1d as the library call.  Returns the 28 bp
-    record."""
+    adapters, 33 bp (two Myers words), 300 bp, the int32 path at 700 and
+    2,000 bp over 256 rows and a full batch of 1,024, and 700 bp at the
+    shapes of phase 5f's launches; times by CUDA graph and events, the
+    plain time, the bound and a one-hot conv1d as the library call.
+    Returns the 28 bp record."""
     import numpy as np
     import torch
     from fastplong_tpu_torch.ops.mismatch import (mismatch_scan,
                                                   mismatch_scan_plain)
     dev = bases.device
     first = None
-    for label, seq, rows in (("28 bp", START, 1024), ("23 bp", END, 1024),
-                             ("33 bp", TRUSEQ, 1024),
-                             ("300 bp", (START * 11)[:300], 256),
-                             ("700 bp", LONG_ADAPTER, 256),
-                             ("2,000 bp", _long_seq(2000, 3), 256)):
-        x = bases[:rows].contiguous()
+    long2k = _long_seq(2000, 3)
+    full = bases.shape[1]
+    for label, seq, rows, cols in (
+            ("28 bp", START, 1024, full), ("23 bp", END, 1024, full),
+            ("33 bp", TRUSEQ, 1024, full),
+            ("300 bp", (START * 11)[:300], 256, full),
+            ("700 bp", LONG_ADAPTER, 256, full),
+            ("2,000 bp", long2k, 256, full),
+            ("700 bp", LONG_ADAPTER, 1024, full),
+            ("2,000 bp", long2k, 1024, full)) + tuple(
+                ("700 bp (5f)", LONG_ADAPTER, r, c)
+                for r, c in SCAN_5F_SHAPES):
+        x = bases[:rows, :cols].contiguous()
         ad = torch.from_numpy(np.frombuffer(seq.encode(), np.uint8)
                               .copy()).to(dev)
         got = mismatch_scan(x, ad)
@@ -1518,7 +1535,8 @@ def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None,
         log("phase %s:   %9.3f ms %6d x %s" % (
             phase, e.self_device_time_total / 1e3, e.count, e.key[:100]))
     for e in evs:
-        if "stat_batch_kernel" in e.key or "regions_kernel" in e.key:
+        if any(k in e.key for k in ("stat_batch_kernel", "regions_kernel",
+                                    "mismatch_")):
             log("phase %s:   in the run: %.5f ms per launch of %s (%d "
                 "launches)" % (phase, e.self_device_time_total / 1e3
                                / max(e.count, 1), e.key[:60], e.count))
@@ -2206,6 +2224,14 @@ def main():
             import numpy as np
             phase_scan(torch.from_numpy(_rand_bases(
                 np.random.default_rng(SEED), (1024, 8192))).to("cuda"))
+            # phase 5f's run, once to warm it and once profiled: its
+            # device time and the scan's time per launch
+            in_fq = os.path.join(workdir, "long.fq")
+            long_adapter_input(in_fq)
+            run_cli(workdir, in_fq, "long_warm", "cuda",
+                    flags=["-s", LONG_ADAPTER])
+            profile_cli(workdir, in_fq, flags=["-s", LONG_ADAPTER],
+                        phase="5f", path="long")
             print(json.dumps({"scan_of": here}))
             return 0
         rec = phase_kernels(headline_input(workdir)[0])

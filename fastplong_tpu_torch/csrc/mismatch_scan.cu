@@ -46,15 +46,12 @@
 //     operations each).  Over whole 32-position chunks the shifts are
 //     constants and the level-3 carries of two groups of eight meet in one
 //     more adder before a carry ripples up from level 4; the rest go eight
-//     at a time (a ripple from level 3), then one at a time.  At uint8 one
-//     thread counts a word.  At int32 two do, each over half of the
-//     adapter, and the second hands its counter through shared memory to
-//     the first, which adds it (a ripple-carry adder, NLEV levels): a
-//     [256, 8192] batch then gives an SM 32 warps, not 16.  The count's two
-//     4-byte plane loads per position and word (about 31 cycles of an
-//     SM's shared-memory bandwidth per adapter position at [256, 8192])
-//     are what bounds it there; loading each distinct byte's pair once per
-//     32 positions would cut them;
+//     at a time (a ripple from level 3), then one at a time.  One thread
+//     counts a word at either output type.  The count's two 4-byte plane
+//     loads per position and word (about 31 cycles of an SM's shared-memory
+//     bandwidth per adapter position at [256, 8192]) are what bounds it;
+//     loading each distinct byte's pair once per 32 positions would cut
+//     them;
 //   * output: the counter planes are spread to bytes four positions at a
 //     time (a multiply puts four bits into four bytes), levels 0-7 into one
 //     word and 8-14 into another.  At uint8 a thread stores its 32 bytes
@@ -62,26 +59,29 @@
 //     two bytes into its count and the thread stores its 32 counts as eight
 //     16-byte stores (neighbouring threads, neighbouring 128-byte runs).
 //
-// Shared memory, dynamic, per block: the planes, kGroup x (W + H) words;
-// at int32 the second threads' counters, NLEV x W words; the positions'
-// tables, 5 B each.  With W = 256 that is 8.2 KB at 28 bp, 22.1 KB at
-// 700 bp, 30.7 KB at 2,000 bp and 215 KB at the longest adapter taken,
-// 32,767 bp (NLEV = 15); above 48 KB the launch raises the instance's
-// limit first, and fewer blocks then sit on an SM.  Indices are int:
-// positions up to L + 32 (W + H) must fit (the wrapper checks).
+// Shared memory, dynamic, per block: the planes, kGroup x (W + H) words,
+// and the positions' tables, 5 B each.  With W = 256 that is 8.2 KiB at
+// 28 bp, 12.1 KiB at 700 bp, 19.7 KiB at 2,000 bp and 200 KiB at the
+// longest adapter taken, 32,767 bp (NLEV = 15); above 48 KiB the launch
+// raises the instance's limit first (once per device), and fewer blocks
+// then sit on an SM.  Indices are int: positions up to L + 32 (W + H) must
+// fit (the wrapper checks).
 //
 // Streaming: with one row per block every block of the single wave would
 // load, count and store in lockstep, leaving the memory idle while the SMs
-// count.  So 1,024 threads sit on each SM (__launch_bounds__: four blocks
-// of 256 at uint8, two of 512 at int32, so every instance gets at most 64
-// registers; `-Xptxas -v` reports each instance's registers and spills),
-// and a block scans its tile of enough rows for one wave of the blocks
-// an SM holds (two rows at [1024, 8192] on 132 SMs).  At uint8 it loads
-// the next row's words while it counts one; at int32 those registers go
-// to the deeper counter.
+// count.  So four blocks of 256 threads sit on each SM (__launch_bounds__
+// for every instance, so each gets at most 64 registers; `-Xptxas -v`
+// reports 63-64 and no spill for all fifteen), a block scans its tile of
+// enough rows for one wave of the blocks an SM holds (two rows at [1024,
+// 8192] on 132 SMs; the count is asked of the occupancy API once per
+// instance, device and shared-memory size), and it loads the next row's
+// words while it counts one.
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 #include <cuda_runtime.h>
 
 namespace {
@@ -221,17 +221,18 @@ __device__ __forceinline__ uint32_t add8(uint32_t (&C)[NLEV],
   return csa(C[2], c2a, c2b);
 }
 
-// adds the mismatch bits of adapter positions i .. end - 1 (i a multiple
-// of 32) to the counter C.  Over whole 32-position chunks the shifts are
-// constants and the level-3 carries of two groups of eight meet in one
-// more adder before a carry ripples up from level 4; then groups of eight
-// (a ripple from level 3), then single positions.
+// adds the mismatch bits of adapter positions 0 .. alen - 1 to the
+// counter C.  Over whole 32-position chunks the shifts are constants and
+// the level-3 carries of two groups of eight meet in one more adder before
+// a carry ripples up from level 4; then groups of eight (a ripple from
+// level 3), then single positions.
 template <int NLEV>
 __device__ __forceinline__ void count_all(uint32_t (&C)[NLEV],
                                           const uint32_t* planes,
-                                          const int* s_off, int i, int end) {
+                                          const int* s_off, int alen) {
+  int i = 0;
   if constexpr (NLEV >= 6) {
-    for (; i + 32 <= end; i += 32) {
+    for (; i + 32 <= alen; i += 32) {
 #pragma unroll
       for (int h = 0; h < 32; h += 16) {
         const uint32_t c3a = add8(C, planes, s_off, i + h, h);
@@ -241,26 +242,12 @@ __device__ __forceinline__ void count_all(uint32_t (&C)[NLEV],
     }
   }
   if constexpr (NLEV >= 4) {
-    for (; i + 8 <= end; i += 8)
+    for (; i + 8 <= alen; i += 8)
       ripple(C, 3, add8(C, planes, s_off, i, i & 31));
   }
-  for (; i < end; ++i) {
+  for (; i < alen; ++i) {
     const uint32_t* p = at(planes, s_off[i]);
     ripple(C, 0, __funnelshift_r(p[0], p[1], i & 31));
-  }
-}
-
-// C += the counter whose level k is p[k * stride] (a ripple-carry adder;
-// the sum fits in NLEV levels)
-template <int NLEV>
-__device__ __forceinline__ void add_counter(uint32_t (&C)[NLEV],
-                                            const uint32_t* p, int stride) {
-  uint32_t carry = 0u;
-#pragma unroll
-  for (int k = 0; k < NLEV; ++k) {
-    const uint32_t a = C[k], b = p[k * stride];
-    C[k] = a ^ b ^ carry;
-    carry = (a & b) | (carry & (a ^ b));
   }
 }
 
@@ -316,52 +303,34 @@ __device__ __forceinline__ void store_counts(const uint32_t (&C)[NLEV],
   }
 }
 
-// threads per output word: the int32 path splits the adapter positions
-// between two, so that a batch of a few hundred rows still gives each SM
-// 32 warps
-template <typename T>
-constexpr int kParts = sizeof(T) == 1 ? 1 : 2;
-
 // T: the output type, uint8_t (alen <= 255) or int32_t; NLEV: bit length
-// of alen (the counter's depth).  Block (x, y) scans tile x, of
-// blockDim.x / kParts<T> words, of rows [y * rows_per_block, ...).
+// of alen (the counter's depth).  Block (x, y) scans tile x, of blockDim.x
+// words, of rows [y * rows_per_block, ...).
 template <typename T, int NLEV>
-__global__ void __launch_bounds__(kMaxWords * kParts<T>,
-                                  kBlocksPerSM / kParts<T>)
+__global__ void __launch_bounds__(kMaxWords, kBlocksPerSM)
     mismatch_bits_kernel(const uint8_t* __restrict__ bases, int B, int L,
                          const uint8_t* __restrict__ adapter, int alen,
                          int rows_per_block, T* __restrict__ out) {
   static_assert(NLEV <= (sizeof(T) == 1 ? 8 : kMaxLevels), "counter depth");
-  constexpr int P = kParts<T>;
-  static_assert(P == 1 || P == 2, "one or two threads a word");
   __shared__ uint8_t s_dist[256];    // distinct adapter bytes, in order
   __shared__ uint32_t s_seen[8];     // the set of adapter bytes
   extern __shared__ __align__(16) uint32_t s_plane[];   // [kGroup][NW]
-  const int NT = blockDim.x;
-  const int W = NT / P;
+  const int W = blockDim.x;
   const int tid = threadIdx.x;
-  const int part = P == 1 ? 0 : tid / W;   // which share of the positions
-  const int tw = tid - part * W;           // which word of the tile
-  const int H = ((alen - 1) >> 5) + 1;     // halo words past the tile
+  const int H = ((alen - 1) >> 5) + 1;   // halo words past the tile
   const int NW = W + H;
-  // after the planes: part 1's counters ([NLEV][W], at int32), then each
-  // adapter position's plane word, in bytes, and its plane pass
-  uint32_t* s_part = s_plane + kGroup * NW;
-  int* s_off = reinterpret_cast<int*>(s_part + (P - 1) * NLEV * W);
+  // after the planes: each adapter position's plane word, in bytes, and
+  // its plane pass
+  int* s_off = reinterpret_cast<int*>(s_plane + kGroup * NW);
   uint8_t* s_grp = reinterpret_cast<uint8_t*>(s_off + alen);
   const int w0 = blockIdx.x * W;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(r0 + rows_per_block, B);
   // a tile that reaches the row's end has only zero bytes in its halo
   const bool tail = (w0 + W) * 32 >= L;
-  // part 0 loads and counts the tile's words, the last part the halo
-  const int hk = tid - (P - 1) * W;
-  const int ib = part == 0 ? 0 : (alen / 2) & ~31;
-  const int ie = part == P - 1 ? alen : (alen / 2) & ~31;
 
   uint32_t w[8];
-  if (part == 0)
-    load_word(bases + static_cast<int64_t>(r0) * L, L, w0 + tw, w);
+  load_word(bases + static_cast<int64_t>(r0) * L, L, w0 + tid, w);
 
   // ---- while the loads are in flight, every warp marks the bytes of its
   // 32-position chunks of the adapter in a 256-bit set (one shared atomic
@@ -371,7 +340,7 @@ __global__ void __launch_bounds__(kMaxWords * kParts<T>,
   if (tid < 8) s_seen[tid] = 0u;
   __syncthreads();
   const int lane = tid & 31;
-  for (int i0 = tid - lane; i0 < alen; i0 += NT) {
+  for (int i0 = tid - lane; i0 < alen; i0 += W) {
     const bool in = i0 + lane < alen;
     const int c = in ? __ldg(adapter + i0 + lane) : 256;
     const unsigned same = __match_any_sync(kFull, c);
@@ -379,42 +348,37 @@ __global__ void __launch_bounds__(kMaxWords * kParts<T>,
       atomicOr(&s_seen[c >> 5], 1u << (c & 31));
   }
   __syncthreads();
-  for (int i = tid; i < alen; i += NT) {
+  for (int i = tid; i < alen; i += W) {
     const int slot = byte_rank(s_seen, __ldg(adapter + i));
     s_off[i] = 4 * ((slot % kGroup) * NW + (i >> 5));
     s_grp[i] = static_cast<uint8_t>(slot / kGroup);
   }
-  for (int c = tid; c < 256; c += NT)
+  for (int c = tid; c < 256; c += W)
     if ((s_seen[c >> 5] >> (c & 31)) & 1u)
       s_dist[byte_rank(s_seen, c)] = static_cast<uint8_t>(c);
   const int ndist = byte_rank(s_seen, 256);
   __syncthreads();
   const int ngroups = (ndist + kGroup - 1) / kGroup;
-  const int word = w0 + tw;             // this thread's output word
+  const int word = w0 + tid;            // this thread's output word
   const bool live = word * 32 < L;
 
   for (int row = r0; row < r1; ++row) {
     const uint8_t* src = bases + static_cast<int64_t>(row) * L;
-    // at uint8 the next row's words are in flight while this row is
-    // counted; at int32 their registers go to the deeper counter
+    // the next row's words are in flight while this row is counted
     uint32_t wn[8];
-    if constexpr (P == 1) {
-      if (row + 1 < r1) load_word(src + L, L, w0 + tw, wn);
-    } else if (row > r0 && part == 0) {
-      load_word(src, L, w0 + tw, w);
-    }
+    if (row + 1 < r1) load_word(src + L, L, w0 + tid, wn);
     uint32_t C[NLEV];
 #pragma unroll
     for (int k = 0; k < NLEV; ++k) C[k] = 0u;
     for (int g = 0; g < ngroups; ++g) {
       if (g > 0) {   // a row's registers are not kept across the counting
         __syncthreads();   // the previous pass is done with the planes
-        if (part == 0) load_word(src, L, w0 + tw, w);
+        load_word(src, L, w0 + tid, w);
       }
       const int nd = min(kGroup, ndist - g * kGroup);
       const uint8_t* dist = s_dist + g * kGroup;
-      if (part == 0) store_planes(w, dist, nd, s_plane + tw, NW);
-      for (int k = hk; k >= 0 && k < H; k += W) {
+      store_planes(w, dist, nd, s_plane + tid, NW);
+      for (int k = tid; k < H; k += W) {
         if (tail) {
           for (int d = 0; d < nd; ++d)
             s_plane[d * NW + W + k] = dist[d] != 0 ? 0xFFFFFFFFu : 0u;
@@ -427,34 +391,22 @@ __global__ void __launch_bounds__(kMaxWords * kParts<T>,
       __syncthreads();
       if (live) {
         if (ngroups == 1) {
-          count_all<NLEV>(C, s_plane + tw, s_off, ib, ie);
+          count_all<NLEV>(C, s_plane + tid, s_off, alen);
         } else {
-          for (int i = ib; i < ie; ++i) {
+          for (int i = 0; i < alen; ++i) {
             if (s_grp[i] != g) continue;
-            const uint32_t* p = at(s_plane + tw, s_off[i]);
+            const uint32_t* p = at(s_plane + tid, s_off[i]);
             ripple(C, 0, __funnelshift_r(p[0], p[1], i & 31));
           }
         }
       }
     }
-
-    // ---- part 1's counter added into part 0's, then one count a position
-    if constexpr (P == 2) {
-      if (part == 1 && live) {
-#pragma unroll
-        for (int k = 0; k < NLEV; ++k) s_part[k * W + tw] = C[k];
-      }
-      __syncthreads();
-      if (part == 0 && live) add_counter(C, s_part + tw, W);
-    }
-    if (part == 0 && live)
+    if (live)
       store_counts(C, out + static_cast<int64_t>(row) * L + word * 32,
                    min(32, L - word * 32));
     __syncthreads();   // the next row rewrites the planes
-    if constexpr (P == 1) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) w[q] = wn[q];
-    }
+    for (int q = 0; q < 8; ++q) w[q] = wn[q];
   }
 }
 
@@ -474,35 +426,61 @@ int sm_count() {
   return sms_of[dev];
 }
 
+// The blocks of instance `kernel` an SM holds at `smem` bytes of dynamic
+// shared memory on the current device, the instance's shared-memory limit
+// raised first where it needs more than 48 KiB.  Both answers are fixed for
+// an instance, a device and a size, so each is asked once and kept (T and
+// NLEV give each instance its own store).
+template <typename T, int NLEV>
+cudaError_t blocks_per_sm(const void* kernel, int threads, size_t smem,
+                          int* per_sm) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> known;   // (device, smem)
+  static int raised[kMaxDevices] = {};                  // limit set, bytes
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find({dev, smem});
+  if (it != known.end()) {
+    *per_sm = it->second;
+    return cudaSuccess;
+  }
+  if (smem > kDefaultSmem && (dev >= kMaxDevices ||
+                              raised[dev] < static_cast<int>(smem))) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) raised[dev] = static_cast<int>(smem);
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads,
+                                                    smem);
+  if (e == cudaSuccess) known[{dev, smem}] = *per_sm;
+  return e;
+}
+
 // Tiles of up to 256 words, and rows per block: enough blocks for one
 // wave of the blocks an SM holds, each streaming its rows.
 template <typename T, int NLEV>
 cudaError_t launch_bits(const uint8_t* b, int B, int L, const uint8_t* a,
                         int alen, T* out, cudaStream_t s) {
-  constexpr int P = kParts<T>;
   const int words = (L - 1) / 32 + 1;
   const int W = std::min(kMaxWords, (words + 31) / 32 * 32);
   const int NW = W + ((alen - 1) >> 5) + 1;
-  const size_t smem = (static_cast<size_t>(NW) * kGroup +
-                       static_cast<size_t>(P - 1) * NLEV * W) * 4 +
+  const size_t smem = static_cast<size_t>(NW) * kGroup * 4 +
                       static_cast<size_t>(alen) * (sizeof(int) + 1);
   auto* kernel = mismatch_bits_kernel<T, NLEV>;
-  cudaError_t e = cudaSuccess;
-  if (smem > kDefaultSmem)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
   int per_sm = 1;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, W * P,
-                                                      smem);
+  const cudaError_t e = blocks_per_sm<T, NLEV>(
+      reinterpret_cast<const void*>(kernel), W, smem, &per_sm);
   if (e != cudaSuccess) return e;
   const int tiles = (words + W - 1) / W;
   const long slots = static_cast<long>(sm_count()) * std::max(1, per_sm);
   const long need = static_cast<long>(tiles) * B;
   const int rows = static_cast<int>(std::max(1L, (need + slots - 1) / slots));
   const dim3 grid(tiles, (B + rows - 1) / rows);
-  kernel<<<grid, W * P, smem, s>>>(b, B, L, a, alen, rows, out);
+  kernel<<<grid, W, smem, s>>>(b, B, L, a, alen, rows, out);
   return cudaGetLastError();
 }
 
