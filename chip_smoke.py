@@ -74,6 +74,15 @@ bases, then phase 5f's 700-bp run once to warm it and once profiled (its
 device time and the scan kernel's time per launch), and stops, for the
 same use: the scan of two trees in turns.
 
+    python3 chip_smoke.py --blockscan
+
+does the same for the block-scan Myers kernel: phase 3's three shapes,
+97 lanes of the 2,000-bp batch, patterns on both sides of the 32- and
+64-word slab edges, and phase 5f's launch shapes (12-97 lanes of 700
+columns), each exact against the plain version, with graph and event
+times and the bound; then phase 5f's run warm and profiled (the
+block-scan's time per launch in it).
+
 The second-to-last line of standard output is {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Imports nothing of JAX or of fastplong_tpu.  Works in a temporary
@@ -504,54 +513,105 @@ def phase_kmer(rng, in_fq):
     return rec
 
 
-def phase_blockscan(rng):
+# the block-scan's launches in phase 5f's run: rows of its batches, each
+# verified against the 700 bp adapter (K = 22) with T = plen = tlen = 700
+BLOCKSCAN_5F_ROWS = (12, 25, 83, 97)
+
+
+def _blockscan_problem(rng, plen_max, N, T, varied=True):
+    """A middle-adapter verify batch on the card: texts of T bases, a third
+    of them close to the pattern, plen = tlen = the pattern's length on
+    every lane or (varied) with 10% of the lanes shorter or empty."""
+    import numpy as np
+    import torch
+    from fastplong_tpu_torch.ops.myers import pattern_table
+    dev = torch.device("cuda")
+    pat = _long_seq(plen_max, plen_max).encode()
+    pm = pattern_table(pat, dev)
+    text = _rand_bases(rng, (N, T))
+    m = min(T, plen_max)
+    for n in range(0, N, 3):      # texts close to the pattern
+        keep = rng.random(m) < 0.9
+        text[n, :m] = np.where(keep, np.frombuffer(pat[:m], np.uint8),
+                               text[n, :m])
+    plen = np.full(N, plen_max, np.int32)
+    tlen = np.full(N, T, np.int32)
+    if varied:
+        some = rng.random(N) < 0.1
+        plen[some] = rng.integers(-1, plen_max + 1, int(some.sum()))
+        tlen[some] = rng.integers(0, T + 1, int(some.sum()))
+    return (pm, torch.from_numpy(plen).to(dev),
+            torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev))
+
+
+def _plain_blockscan(args):
+    """The plain version on the card: (distances, ms of its one call)."""
+    import torch
+    from fastplong_tpu_torch.ops.myers import myers_verify_plain
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = myers_verify_plain(*args)
+    torch.cuda.synchronize()
+    return ref, (time.perf_counter() - t0) * 1e3
+
+
+def _blockscan_record(label, args, ref, plain):
+    """The kernel against `ref`, exactly, and its graph and event times and
+    bound at this shape; printed and returned."""
+    import torch
+    from fastplong_tpu_torch.ops.myers import myers_blockscan
+    got = myers_blockscan(*args)
+    torch.cuda.synchronize()
+    err = require_equal("myers_blockscan", got, ref)
+    ms = graph_ms(lambda: myers_blockscan(*args), reps=5, inner=5)
+    ev = cuda_ms(lambda: myers_blockscan(*args), reps=5, inner=5)
+    bms, by = bound(*_myers_work(*args), WORD32_OPS_PER_S)
+    N, T = args[2].shape
+    r = dict(name="myers_blockscan", shape="N=%d T=%d K=%d (%s)"
+             % (N, T, args[0].shape[1], label), max_abs_err=err, ms=ms,
+             eager_ms=ev, plain_ms=plain, bound_ms=bms, bound_by=by,
+             library_ms=None)
+    log("phase 3: " + json.dumps(r))
+    return r
+
+
+def phase_blockscan(rng, more=False):
     """The block-scan Myers kernel against its plain version, exactly, at
     the middle-adapter search's shapes (plen = tlen = alen on most lanes,
     some lanes shorter or empty): [1024, 700] (K = 22), [1024, 2000]
     (K = 63) and a small batch with a 5,000-bp pattern (K = 157) over
     300-column texts, which the plain loop can still run.  The plain time
-    is its one call.  Returns the 700 bp record (phase 5f's shape)."""
-    import numpy as np
-    import torch
-    from fastplong_tpu_torch.ops.myers import (myers_blockscan,
-                                               myers_verify_plain,
-                                               pattern_table)
-    dev = torch.device("cuda")
+    is its one call.  With `more` (--blockscan), also 97 lanes of the
+    2,000-bp batch, patterns on both sides of the slab edges of 32 and 64
+    words (1,024, 1,025, 2,048 and 2,049 bp) over 97 lanes of 300 columns,
+    and phase 5f's launch shapes (12-97 lanes of 700 columns, plen = tlen
+    = 700 on every lane; each the first rows of one 97-lane batch, held
+    to that batch's plain distances).  Returns the 700 bp record."""
     rec = None
     for label, plen_max, N, T in (("700 bp, K=22", 700, 1024, 700),
                                   ("2,000 bp, K=63", 2000, 1024, 2000),
                                   ("5,000 bp, K=157", 5000, 64, 300)):
-        pat = _long_seq(plen_max, plen_max).encode()
-        pm = pattern_table(pat, dev)
-        text = _rand_bases(rng, (N, T))
-        m = min(T, plen_max)
-        for n in range(0, N, 3):      # texts close to the pattern
-            keep = rng.random(m) < 0.9
-            text[n, :m] = np.where(keep, np.frombuffer(pat[:m], np.uint8),
-                                   text[n, :m])
-        plen = np.full(N, plen_max, np.int32)
-        tlen = np.full(N, T, np.int32)
-        some = rng.random(N) < 0.1
-        plen[some] = rng.integers(-1, plen_max + 1, int(some.sum()))
-        tlen[some] = rng.integers(0, T + 1, int(some.sum()))
-        args = (pm, torch.from_numpy(plen).to(dev),
-                torch.from_numpy(text).to(dev), torch.from_numpy(tlen).to(dev))
-        got = myers_blockscan(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = myers_verify_plain(*args)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
-        err = require_equal("myers_blockscan", got, ref)
-        ms = graph_ms(lambda: myers_blockscan(*args), reps=5, inner=5)
-        ev = cuda_ms(lambda: myers_blockscan(*args), reps=5, inner=5)
-        bms, by = bound(*_myers_work(*args), WORD32_OPS_PER_S)
-        r = dict(name="myers_blockscan", shape="N=%d T=%d K=%d (%s)"
-                 % (N, T, pm.shape[1], label), max_abs_err=err, ms=ms,
-                 eager_ms=ev, plain_ms=plain, bound_ms=bms, bound_by=by,
-                 library_ms=None)
-        log("phase 3: " + json.dumps(r))
+        args = _blockscan_problem(rng, plen_max, N, T)
+        ref, plain = _plain_blockscan(args)
+        r = _blockscan_record(label, args, ref, plain)
         rec = rec or r
+        if more and plen_max == 2000:
+            _blockscan_record("2,000 bp, 97 lanes of the batch above",
+                              (args[0],) + tuple(a[:97] for a in args[1:]),
+                              ref[:97], None)
+    if more:
+        for plen_max in (1024, 1025, 2048, 2049):
+            args = _blockscan_problem(rng, plen_max, 97, 300)
+            ref, plain = _plain_blockscan(args)
+            _blockscan_record("%d bp, a slab edge" % plen_max, args, ref,
+                              plain)
+        args = _blockscan_problem(rng, 700, max(BLOCKSCAN_5F_ROWS), 700,
+                                  varied=False)
+        ref, plain = _plain_blockscan(args)
+        for rows in BLOCKSCAN_5F_ROWS:
+            _blockscan_record("700 bp, 5f's %d rows" % rows,
+                              (args[0],) + tuple(a[:rows] for a in args[1:]),
+                              ref[:rows], plain if rows == len(ref) else None)
     return rec
 
 
@@ -1536,7 +1596,7 @@ def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None,
             phase, e.self_device_time_total / 1e3, e.count, e.key[:100]))
     for e in evs:
         if any(k in e.key for k in ("stat_batch_kernel", "regions_kernel",
-                                    "mismatch_")):
+                                    "mismatch_", "myers_blockscan")):
             log("phase %s:   in the run: %.5f ms per launch of %s (%d "
                 "launches)" % (phase, e.self_device_time_total / 1e3
                                / max(e.count, 1), e.key[:60], e.count))
@@ -2209,8 +2269,9 @@ def main():
     sys.path.insert(0, here)
     torch.backends.cudnn.allow_tf32 = False
     mode = sys.argv[1:]
-    if mode not in ([], ["--walls"], ["--scan"]):
-        sys.stderr.write("usage: chip_smoke.py [--walls | --scan]\n")
+    if mode not in ([], ["--walls"], ["--scan"], ["--blockscan"]):
+        sys.stderr.write("usage: chip_smoke.py [--walls | --scan | "
+                         "--blockscan]\n")
         return 2
     workdir = tempfile.mkdtemp(prefix="fastplong_chip_smoke_")
     try:
@@ -2220,19 +2281,23 @@ def main():
             launches, kind, _ = phase_cli(workdir, walls_only=True)
             print(json.dumps({"walls_of": here, "launches": launches}))
             return 0
-        if mode == ["--scan"]:
+        if mode in (["--scan"], ["--blockscan"]):
             import numpy as np
-            phase_scan(torch.from_numpy(_rand_bases(
-                np.random.default_rng(SEED), (1024, 8192))).to("cuda"))
+            rng = np.random.default_rng(SEED)
+            if mode == ["--scan"]:
+                phase_scan(torch.from_numpy(_rand_bases(
+                    rng, (1024, 8192))).to("cuda"))
+            else:
+                phase_blockscan(rng, more=True)
             # phase 5f's run, once to warm it and once profiled: its
-            # device time and the scan's time per launch
+            # device time and the kernels' time per launch
             in_fq = os.path.join(workdir, "long.fq")
             long_adapter_input(in_fq)
             run_cli(workdir, in_fq, "long_warm", "cuda",
                     flags=["-s", LONG_ADAPTER])
             profile_cli(workdir, in_fq, flags=["-s", LONG_ADAPTER],
                         phase="5f", path="long")
-            print(json.dumps({"scan_of": here}))
+            print(json.dumps({mode[0][2:] + "_of": here}))
             return 0
         rec = phase_kernels(headline_input(workdir)[0])
         phase_step()

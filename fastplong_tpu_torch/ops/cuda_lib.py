@@ -42,7 +42,7 @@ _SIGNATURES = {
                             _P],
     "fpl_regions": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P],
     "fpl_kmer_hist": [_P, _I, _I, _P, _P, _I, _P, _P],
-    "fpl_myers_blockscan": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
+    "fpl_myers_blockscan": [_P, _I, _I, _P, _P, _P, _I, _P, _P],
 }
 
 _lib = None    # the loaded library (one per process)

@@ -147,7 +147,10 @@ myers_verify.launches = 0
 def myers_blockscan(pm_tbl, plen, text, tlen):
     """myers_verify for a [256, K] table of any K (the middle-adapter
     search of adapters longer than MAX_DEVICE_PATTERN).  CPU tensors take
-    the plain version; CUDA tensors launch the block-scan kernel."""
+    the plain version; CUDA tensors launch the block-scan kernel, whose
+    warps each hold 32 words of a lane and pass their carries on through
+    shared memory (csrc/myers_blockscan.cu), so the launch needs no
+    scratch."""
     if text.device.type == "cpu":
         return myers_verify_plain(pm_tbl, plen, text, tlen)
     N, T = text.shape
@@ -163,12 +166,10 @@ def myers_blockscan(pm_tbl, plen, text, tlen):
     out = torch.empty(N, dtype=torch.int32, device=text.device)
     if N == 0:
         return out
-    nblk = max((T + 7) // 8, 1)
-    scratch = torch.empty((N, nblk), dtype=torch.int32, device=text.device)
     cuda_lib.launch(
         "fpl_myers_blockscan", text, cuda_lib.ptr(text), N, T,
         cuda_lib.ptr(plen), cuda_lib.ptr(tlen), cuda_lib.ptr(pm_tbl), K,
-        cuda_lib.ptr(scratch), nblk, cuda_lib.ptr(out))
+        cuda_lib.ptr(out))
     myers_blockscan.launches += 1
     return out
 

@@ -318,22 +318,165 @@ def test_regions_block_steps_on_card(card, w):
             assert torch.equal(g, r), q
 
 
+def _blockscan_case(rng, K, T, N, card, plen_max, pat_bytes, text_bytes):
+    """A block-scan problem with a plen_max-byte pattern over pat_bytes
+    (a [256, K] table) and texts over text_bytes, a third of them close
+    to the pattern; plen and tlen random per lane, with the first lanes at
+    the pattern's length, at 0 and at the edges of a 32-bit word and of a
+    slab of 32 words."""
+    pat = bytes(rng.choice(np.frombuffer(pat_bytes, np.uint8), plen_max)
+                .tolist())
+    pm = pattern_table(pat, card)
+    assert pm.shape[1] == K
+    text = rng.choice(np.frombuffer(text_bytes, np.uint8), (N, T))
+    m = min(T, plen_max)
+    for n in range(0, N, 3):
+        keep = rng.random(m) < 0.9
+        text[n, :m] = np.where(keep, np.frombuffer(pat[:m], np.uint8),
+                               text[n, :m])
+    plen = rng.integers(-1, plen_max + 1, N).astype(np.int32)
+    tlen = rng.integers(-1, T + 3, N).astype(np.int32)
+    edges = [plen_max, 0] + [e for e in (1, 32, 33, 1024, 1025, 2048, 2049,
+                                         plen_max - 1) if e < plen_max]
+    k = min(N, len(edges))
+    plen[:k] = edges[:k]
+    tlen[:k] = T
+    return (pm, torch.from_numpy(plen).to(card), torch.from_numpy(text)
+            .to(card), torch.from_numpy(tlen).to(card))
+
+
+ACGT = b"ACGT"
+# seven distinct bytes, two of them >= 128: the byte permute that turns a
+# text byte into a mask address must not sign-extend them
+ODD7 = b"ACGTN\x80\xfe"
+# twenty distinct bytes: the masks of a step come from twenty rows of the
+# table, read through L1
+ODD20 = bytes(range(60, 78)) + b"\x81\xff"
+TEXT = b"ACGTN"
+# bytes absent from every pattern above: rank "absent"
+TEXT_ABSENT = b"ACGTN\x00a\x7f\x90\xff"
+# byte 0 in the pattern: a column before a word's first is not neutral
+ZERO = b"\x00ACGT\xc0"
+
+
+def _byte_ids(v):
+    """Short test ids for the byte sets."""
+    if isinstance(v, bytes):
+        return {b"ACGT": "acgt", b"ACGTN": "acgtn", ODD7: "odd7",
+                ODD20: "odd20", TEXT_ABSENT: "absent",
+                ZERO: "zero"}.get(v, "absent20")
+    return None
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,T,N", [(21, 700, 64), (22, 330, 96),
-                                   (63, 160, 40), (157, 96, 9)])
-def test_myers_blockscan_on_card(card, K, T, N):
-    """The block-scan against its plain version at K = 21, 22, 63 and 157
-    (5,000 bp), one launch a call; text widths that are not multiples of
-    8 and empty patterns and texts included."""
+@pytest.mark.parametrize("K,T,N,plen_max,pat_bytes,text_bytes", [
+    (21, 700, 64, None, None, None), (22, 330, 96, None, None, None),
+    (63, 160, 40, None, None, None), (157, 96, 9, None, None, None),
+    # the edges of a slab of 32 words, where a lane's warps meet
+    (32, 300, 40, 1024, ACGT, TEXT), (33, 300, 40, 1025, ACGT, TEXT),
+    (64, 210, 33, 2048, ACGT, TEXT), (65, 210, 33, 2049, ACGT, TEXT),
+    # T not a multiple of 8 or 16, and T past a warp's text ring (1,024)
+    (22, 1100, 20, 700, ACGT, TEXT), (33, 1037, 6, 1025, ACGT, TEXT),
+    # beyond the cap of 32 warps a lane: two rounds of slabs
+    (1057, 24, 5, 33800, ACGT, TEXT),
+    # a table of 6,000 words (24,000 B a byte's row), six rounds of slabs
+    (6000, 9, 3, 191990, ACGT, TEXT),
+    # one lane; blocks of 2 and 8 lanes with a partial last block
+    (22, 700, 1, 700, ACGT, TEXT), (22, 700, 133, 700, ACGT, TEXT),
+    (33, 120, 1001, 1050, ACGT, TEXT),
+    # pattern bytes outside ACGT and >= 128, from 7 and 20 rows of the
+    # table; texts with bytes absent from the pattern
+    (22, 333, 50, 700, ODD7, TEXT_ABSENT), (40, 200, 50, 1270, ODD7,
+                                            TEXT_ABSENT),
+    (22, 333, 50, 700, ODD20, TEXT_ABSENT + bytes(range(60, 78))),
+    (22, 300, 30, 700, ACGT, TEXT_ABSENT),
+    (22, 333, 50, 700, ZERO, TEXT_ABSENT), (40, 200, 30, 1270, ZERO,
+                                            TEXT_ABSENT)], ids=_byte_ids)
+def test_myers_blockscan_on_card(card, K, T, N, plen_max, pat_bytes,
+                                 text_bytes):
+    """The block-scan against its plain version, one launch a call: K =
+    21, 22, 63 and 157 (5,000 bp) on texts whose widths are not multiples
+    of 8 with empty patterns and texts; the slab edges of 32 and 64 words;
+    a long T; rounds of slabs past the warp cap; a table of 6,000 words;
+    one lane and partial blocks; bytes outside ACGT in the pattern and
+    bytes absent from it in the texts."""
     from fastplong_tpu_torch.ops.myers import (myers_blockscan,
                                                myers_verify_plain)
-    rng = np.random.default_rng(90 + K)
-    args = _problem(rng, K, T, N, card)
+    rng = np.random.default_rng(90 + K + T + N)
+    if plen_max is None:
+        rng = np.random.default_rng(90 + K)
+        args = _problem(rng, K, T, N, card)
+    else:
+        args = _blockscan_case(rng, K, T, N, card, plen_max, pat_bytes,
+                               text_bytes)
     before = myers_blockscan.launches
     got = myers_blockscan(*args)
     torch.cuda.synchronize()
     assert myers_blockscan.launches == before + 1
     assert torch.equal(got, myers_verify_plain(*args))
+
+
+def _table_pattern(pm, plen):
+    """The first plen bytes of the pattern that pattern_table made pm of:
+    position i holds the byte whose row has bit i % 32 of word i // 32."""
+    bits = np.unpackbits(pm.cpu().numpy().view(np.uint8), axis=1,
+                         bitorder="little")
+    return bytes(np.argmax(bits[:, :plen], axis=0).astype(np.uint8))
+
+
+def levenshtein(pat, plen, text, tlen):
+    """The block-scan's distances by the textbook dynamic program, for
+    patterns too long for the plain version's word loop: out[n] is the
+    edit distance of pat[:plen[n]] against text[n, :min(tlen[n], T)]
+    (tlen[n] where plen[n] <= 0).  One pattern-long row a text column:
+    row[i] = min(up + 1, diagonal + cost), then the insertions as
+    i + a running minimum of row[k] - k."""
+    pat = np.frombuffer(pat, np.uint8)
+    N, T = text.shape
+    out = np.empty(N, np.int32)
+    for n in range(N):
+        p, cols = int(plen[n]), min(max(int(tlen[n]), 0), T)
+        if p <= 0:
+            out[n] = tlen[n]
+            continue
+        idx = np.arange(p + 1)
+        row = idx.copy()
+        for j in range(cols):
+            nxt = np.empty_like(row)
+            nxt[0] = j + 1
+            np.minimum(row[1:] + 1, row[:-1] + (pat[:p] != text[n, j]),
+                       out=nxt[1:])
+            row = idx + np.minimum.accumulate(nxt - idx)
+        out[n] = row[p]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,T,N,plen_max", [
+    (1057, 1100, 12, 33800), (1057, 2000, 12, 33800),
+    (2100, 1337, 12, 67200)])
+def test_myers_blockscan_rounds_on_card(card, K, T, N, plen_max):
+    """Rounds of slabs (K past 1,024 words: 2 and 3 rounds of 32 warps) on
+    texts of more than 128 steps, so that each carry ring between two
+    warps wraps, the producer may wait for room and the row between
+    rounds holds 138-250 entries; lanes of 32 and 33 slabs beside the
+    longest.  Against the dynamic program (levenshtein), since the plain
+    version's word loop would take minutes here; tests/
+    test_torch_long_adapters.py holds the two equal at smaller sizes."""
+    from fastplong_tpu_torch.ops.myers import myers_blockscan
+    rng = np.random.default_rng([K, T, N])
+    pm, plen, text, tlen = _blockscan_case(rng, K, T, N, card, plen_max,
+                                           ACGT, TEXT)
+    # lanes of exactly one round, one slab more, and of the last slab
+    plen[N - 4:] = torch.tensor([32768, 32769, plen_max - 33, plen_max - 1],
+                                dtype=torch.int32)
+    before = myers_blockscan.launches
+    got = myers_blockscan(pm, plen, text, tlen)
+    torch.cuda.synchronize()
+    assert myers_blockscan.launches == before + 1
+    want = levenshtein(_table_pattern(pm, plen_max), plen.cpu().numpy(),
+                       text.cpu().numpy(), tlen.cpu().numpy())
+    assert np.array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.cuda
