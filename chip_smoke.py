@@ -83,6 +83,17 @@ columns), each exact against the plain version, with graph and event
 times and the bound; then phase 5f's run warm and profiled (the
 block-scan's time per launch in it).
 
+    python3 chip_smoke.py --kmer
+
+does the same for the k-mer fill of auto-detection: phase 3's block
+(both sides of config 4's sample with the plain time, scatter_add_ and
+the copy to the host; the edge batches), then (a) the sample with every
+adapter byte replaced by random ACGT, (b) END at column 116 of every
+end-side row, (c) 1-33 rows and 8,001 rows, each exact against the plain
+version, with graph and event times and the bound; then config 4's run
+(phase 5d) warm and profiled (the evaluator's seconds, the fill's time
+per launch).
+
 The second-to-last line of standard output is {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Imports nothing of JAX or of fastplong_tpu.  Works in a temporary
@@ -436,81 +447,146 @@ def _kmer_edge_batch(rng, n=600):
     return mat, npos, pbase
 
 
-def phase_kmer(rng, in_fq):
-    """The k-mer fill (kmer_hist) against its plain version, exactly, into
-    a zero accumulator as the evaluator gives it: both sides of config 4's
-    sample (the headline input's 8,000 reads, as auto-detection takes
-    them) and an edge batch from a non-zero accumulator; times by CUDA
-    graph and events, the plain time, one scatter_add_ over the same keys
-    (keys not timed) and the copy of the accumulator to the host.
-    Returns the start side's record."""
+def _kmer_record(label, mat, npos, pbase, sign, start=None, full=False):
+    """kmer_hist on the card against its plain version on the same inputs,
+    exactly, from `start` (a zero accumulator if None); its graph and
+    event ms at this shape and its bound.  full: also the plain time, one
+    scatter_add_ over the same keys (keys not timed) and the copy of the
+    accumulator to the host.  Printed and returned."""
     import numpy as np
     import torch
-    from fastplong_tpu_torch.evaluator import window_matrix
     from fastplong_tpu_torch.ops.kmer import (KEYSPACE, kmer_hist,
                                               kmer_hist_plain, window_keys)
     dev = torch.device("cuda")
-    seqs = _fastq_seqs(in_fq)
-    lens = np.asarray([len(x) for x in seqs], np.int64)
-    rec = None
-    for side, end in (("start side", False), ("end side", True)):
-        mat, npos, base_pos = window_matrix(seqs, lens, 1, end)
-        pbase = lens - base_pos if end else base_pos
-        args = [torch.from_numpy(a).to(dev)
-                for a in (mat, npos.astype(np.int32), pbase)] + [
-                    -1 if end else 1]
-        got = kmer_hist(torch.zeros((2, KEYSPACE), dtype=torch.int64,
-                                    device=dev), *args)
-        ref = kmer_hist_plain(torch.zeros_like(got), *args)
-        err = require_equal("kmer_hist", got, ref)
-        acc = torch.zeros_like(got)
-        ms = graph_ms(lambda: kmer_hist(acc, *args))
-        ev = cuda_ms(lambda: kmer_hist(acc, *args))
-        plain = cuda_ms(lambda: kmer_hist_plain(acc, *args), reps=3, inner=1)
-        kk, pv = window_keys(*args)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (mat, np.asarray(npos, np.int32), np.asarray(pbase, np.int64))
+            ] + [sign]
+    if start is None:
+        start = torch.zeros((2, KEYSPACE), dtype=torch.int64)
+    start = start.to(dev)
+    got = kmer_hist(start.clone(), *args)
+    ref = kmer_hist_plain(start.clone(), *args)
+    err = require_equal("kmer_hist", got, ref)
+    kk, pv = window_keys(*args)
+    windows = int(kk.numel())
+    distinct = int(torch.unique(kk).numel())
+    acc = torch.zeros_like(got)
+    ms = graph_ms(lambda: kmer_hist(acc, *args))
+    ev = cuda_ms(lambda: kmer_hist(acc, *args))
+    bms, by = bound(mat.size + 12 * len(npos) + 32 * distinct,
+                    20 * windows, WORD32_OPS_PER_S)
+    r = dict(name="kmer_hist", shape="[%d, %d] %s, sign %+d, %d windows, "
+             "%d keys" % (mat.shape + (label, sign, windows, distinct)),
+             max_abs_err=err, ms=ms, eager_ms=ev, bound_ms=bms, bound_by=by)
+    if full:
+        r["plain_ms"] = cuda_ms(lambda: kmer_hist_plain(acc, *args), reps=3,
+                                inner=1)
         idx = torch.cat([kk, kk + KEYSPACE])
         src = torch.cat([torch.ones_like(kk), pv])
-        flat = torch.zeros(2 * KEYSPACE, dtype=torch.int64, device=dev)
+        flat = start.view(-1).clone()
         flat.scatter_add_(0, idx, src)
         if not torch.equal(flat.view(2, KEYSPACE), got):
             raise AssertionError("scatter_add_ yardstick disagrees with the "
                                  "kernel")
-        lib = cuda_ms(lambda: flat.scatter_add_(0, idx, src))
+        r["library_ms"] = cuda_ms(lambda: flat.scatter_add_(0, idx, src))
         copies = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got.cpu()
             copies.append((time.perf_counter() - t0) * 1e3)
-        windows = int(kk.numel())
-        distinct = int((got[0] != 0).sum().item())
-        bms, by = bound(mat.size + 12 * len(npos) + 32 * distinct,
-                        20 * windows, WORD32_OPS_PER_S)
-        r = dict(name="kmer_hist", shape="config 4 sample [%d, %d] %s, %d "
-                 "windows, %d keys" % (mat.shape + (side, windows, distinct)),
-                 max_abs_err=err, ms=ms, eager_ms=ev, plain_ms=plain,
-                 bound_ms=bms, bound_by=by, library_ms=lib,
-                 copy_to_host_ms=statistics.median(copies))
-        log("phase 3: " + json.dumps(r))
+        r["copy_to_host_ms"] = statistics.median(copies)
+    log("phase 3: " + json.dumps(r))
+    return r, ref - start
+
+
+def _kmer_sample(seqs, end):
+    """(mat, npos, pbase, sign) of one side of auto-detection's sample of
+    seqs, as the evaluator builds it (shift_tail 1)."""
+    import numpy as np
+    from fastplong_tpu_torch.evaluator import window_matrix
+    lens = np.asarray([len(x) for x in seqs], np.int64)
+    mat, npos, base_pos = window_matrix(seqs, lens, 1, end)
+    return mat, npos, lens - base_pos if end else base_pos, -1 if end else 1
+
+
+def _without_adapters(rng, seqs):
+    """seqs with the bytes of a START prefix and an END suffix replaced by
+    random ACGT: the sample's windows with no hot key."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for s in seqs:
+        a = np.frombuffer(s, np.uint8).copy()
+        if s.startswith(START.encode()):
+            a[:len(START)] = rng.choice(acgt, len(START))
+        if s.endswith(END.encode()):
+            a[len(a) - len(END):] = rng.choice(acgt, len(END))
+        out.append(a.tobytes())
+    return out
+
+
+def phase_kmer(rng, in_fq, more=False):
+    """The k-mer fill (kmer_hist) against its plain version, exactly, into
+    a zero accumulator as the evaluator gives it: both sides of config 4's
+    sample (the headline input's 8,000 reads, as auto-detection takes
+    them), with the plain time, scatter_add_ and the copy to the host; then
+    an edge batch from a non-zero accumulator on both signs.  With `more`
+    (--kmer), also (a) the sample with every adapter byte replaced by
+    random ACGT (no hot key), (b) END at column 116 of every end-side row
+    (the most contention), (c) the first 1-33 rows of the end side and
+    8,001 rows (the sample and one row more) on both sides.  Returns the
+    start side's record."""
+    import torch
+    from fastplong_tpu_torch.ops.kmer import KEYSPACE
+    seqs = _fastq_seqs(in_fq)
+    rec = None
+    for side, end in (("config 4 sample, start side", False),
+                      ("config 4 sample, end side", True)):
+        r, _ = _kmer_record(side, *_kmer_sample(seqs, end), full=True)
         rec = rec or r
     for sign in (1, -1):
         mat, npos, pbase = _kmer_edge_batch(rng)
-        args = [torch.from_numpy(a).to(dev) for a in (mat, npos, pbase)]
         g = torch.Generator().manual_seed(sign + 2)
-        start = torch.randint(0, 1 << 40, (2, KEYSPACE), generator=g).to(dev)
-        got = kmer_hist(start.clone(), *args, sign)
-        ref = kmer_hist_plain(start.clone(), *args, sign)
-        err = require_equal("kmer_hist", got, ref)
-        top = int((ref - start)[1].max().item())
+        start = torch.randint(0, 1 << 40, (2, KEYSPACE), generator=g)
+        _, added = _kmer_record("edge batch, from a non-zero accumulator",
+                                mat, npos, pbase, sign, start=start)
+        top = int(added[1].max().item())
         if top <= 1 << 32:
             raise AssertionError("kmer_hist edge batch: no position sum "
                                  "passed 2^32")
-        log("phase 3: " + json.dumps(dict(
-            name="kmer_hist", shape="edge batch [600, 139], sign %+d, from a "
-            "non-zero accumulator; largest position sum added %d" % (sign,
-                                                                     top),
-            max_abs_err=err)))
+    if more:
+        for shape in kmer_more_shapes(rng, seqs):
+            _kmer_record(*shape)
     return rec
+
+
+def kmer_more_shapes(rng, seqs, rows=range(1, 34)):
+    """[(label, mat, npos, pbase, sign)] of --kmer beyond phase 3: (a) the
+    sample of seqs with every adapter byte replaced by random ACGT, both
+    sides; (b) END at column 116 of every end-side row; (c) the first n
+    end-side rows for n in `rows`, and the sample and one row more, both
+    sides."""
+    import numpy as np
+    out = []
+    plain = _without_adapters(rng, seqs)
+    for side, end in (("(a) no adapter bytes, start side", False),
+                      ("(a) no adapter bytes, end side", True)):
+        out.append((side,) + _kmer_sample(plain, end))
+    mat, npos, pbase, sign = _kmer_sample(seqs, True)
+    hot = mat.copy()
+    hot[:, 116:116 + len(END)] = np.frombuffer(END.encode(), np.uint8)
+    out.append(("(b) END at column 116 of every row", hot, npos, pbase,
+                sign))
+    for n in rows:
+        out.append(("(c) the first %d rows" % n, mat[:n], npos[:n],
+                    pbase[:n], sign))
+    for side, end in (("(c) the sample and one row more, start side", False),
+                      ("(c) the sample and one row more, end side", True)):
+        mat, npos, pbase, sign = _kmer_sample(seqs, end)
+        out.append((side,) + tuple(np.concatenate([a, a[:1]])
+                                   for a in (mat, npos, pbase)) + (sign,))
+    return out
 
 
 # the block-scan's launches in phase 5f's run: rows of its batches, each
@@ -1578,7 +1654,11 @@ def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None,
         pwall, _ = run_cli(workdir, in_fq, "prof", "cuda", timer_dump=dump,
                            flags=flags, devices=devices)
     with open(dump) as f:
-        steps = json.load(f)["step_calls"]
+        timing = json.load(f)
+    steps = timing["step_calls"]
+    if timing.get("evaluator_seconds"):
+        log("phase %s: profiled run's evaluator seconds %s"
+            % (phase, json.dumps(timing["evaluator_seconds"])))
     evs = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) is not None
            and str(e.device_type).endswith("CUDA")]
@@ -1596,7 +1676,8 @@ def profile_cli(workdir, in_fq, flags=HEADLINE, phase="5", path=None,
             phase, e.self_device_time_total / 1e3, e.count, e.key[:100]))
     for e in evs:
         if any(k in e.key for k in ("stat_batch_kernel", "regions_kernel",
-                                    "mismatch_", "myers_blockscan")):
+                                    "mismatch_", "myers_blockscan",
+                                    "kmer_hist")):
             log("phase %s:   in the run: %.5f ms per launch of %s (%d "
                 "launches)" % (phase, e.self_device_time_total / 1e3
                                / max(e.count, 1), e.key[:60], e.count))
@@ -2269,9 +2350,10 @@ def main():
     sys.path.insert(0, here)
     torch.backends.cudnn.allow_tf32 = False
     mode = sys.argv[1:]
-    if mode not in ([], ["--walls"], ["--scan"], ["--blockscan"]):
+    if mode not in ([], ["--walls"], ["--scan"], ["--blockscan"],
+                    ["--kmer"]):
         sys.stderr.write("usage: chip_smoke.py [--walls | --scan | "
-                         "--blockscan]\n")
+                         "--blockscan | --kmer]\n")
         return 2
     workdir = tempfile.mkdtemp(prefix="fastplong_chip_smoke_")
     try:
@@ -2280,6 +2362,22 @@ def main():
         if mode == ["--walls"]:
             launches, kind, _ = phase_cli(workdir, walls_only=True)
             print(json.dumps({"walls_of": here, "launches": launches}))
+            return 0
+        if mode == ["--kmer"]:
+            import numpy as np
+            in_fq = headline_input(workdir)[0]
+            phase_kmer(np.random.default_rng(SEED), in_fq, more=True)
+            # phase 5d's run, once to warm it and once profiled: the
+            # evaluator's seconds and the k-mer fill's time per launch
+            dump = os.path.join(workdir, "timer_c4_warm.json")
+            run_cli(workdir, in_fq, "c4_warm", "cuda", timer_dump=dump,
+                    flags=CONFIG4)
+            with open(dump) as f:
+                log("phase 5d: warm run's evaluator seconds %s" % json.dumps(
+                    json.load(f)["evaluator_seconds"]))
+            profile_cli(workdir, in_fq, flags=CONFIG4, phase="5d",
+                        path="autodetect")
+            print(json.dumps({"kmer_of": here}))
             return 0
         if mode in (["--scan"], ["--blockscan"]):
             import numpy as np

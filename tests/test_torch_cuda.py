@@ -509,6 +509,74 @@ def test_kmer_hist_on_card(card, sign):
     assert int((ref - start)[1].max()) > 1 << 32
 
 
+def _kmer_groups(rng, case, n):
+    """(mat, npos, pbase) whose lanes group at one column, as the k-mer
+    kernel's warps (32 rows at one column) see them: every row carrying END
+    at column 116 with one pbase (all 32 lanes one group); groups of mixed
+    size at column 60, bytes outside ACGTU inside some windows, npos 0,
+    negative, short of the column or beyond the row, and two pbase values;
+    T and U rows in one group; one group's positions near 2^31, so that its
+    sum passes 2^35."""
+    mat = rng.choice(ACGTN[:4], (n, 139))
+    npos = np.full(n, 129, np.int32)
+    pbase = np.full(n, 139, np.int64)
+    if case in ("one_group", "near_2_31"):
+        mat[:, 116:139] = np.frombuffer(b"AGCAATACGTAACTGAACGAAGT", np.uint8)
+        if case == "near_2_31":
+            pbase[:] = (1 << 31) - 7
+    elif case == "t_and_u":
+        mer = np.frombuffer(b"TTACGTTCAT", np.uint8)
+        mat[:, 30:40] = np.where((mer == ord("T")) & (rng.random((n, 10))
+                                                      < 0.5), ord("U"), mer)
+    else:
+        mers = [np.frombuffer(m, np.uint8) for m in (
+            b"ACGTACGTAC", b"GATTACAGAT", b"CCCCCGGGGG", b"TTTTTTTTTA")]
+        pick = rng.choice(4, n, p=[.5, .3, .15, .05])
+        for i in range(n):
+            mat[i, 60:70] = mers[pick[i]]
+        mat[::5, 65] = ord("N")
+        mat[4::9, 69] = ord("a")
+        npos[1::7] = 0
+        npos[2::7] = -3
+        npos[3::7] = 300
+        npos[4::7] = 60
+        pbase[::3] = 200
+    return mat, npos, pbase
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1], ids=["start", "end"])
+@pytest.mark.parametrize("case,n", [
+    ("one_group", 2000), ("mixed_groups", 2000), ("t_and_u", 2000),
+    ("near_2_31", 2000), ("mixed_groups", 1), ("mixed_groups", 31),
+    ("mixed_groups", 33), ("mixed_groups", 8001)])
+def test_kmer_hist_groups_on_card(card, case, n, sign):
+    """The k-mer kernel's merged groups against the plain version from a
+    non-zero accumulator, one launch a call, at partial warps and blocks
+    (n of 1, 31, 33 and 8,001) too."""
+    from fastplong_tpu_torch.ops.kmer import (KEYSPACE, kmer_hist,
+                                              kmer_hist_plain)
+    rng = np.random.default_rng(n + len(case) + sign)
+    mat, npos, pbase = _kmer_groups(rng, case, n)
+    g = torch.Generator().manual_seed(n + sign)
+    start = torch.randint(0, 1 << 40, (2, KEYSPACE), generator=g)
+    got, ref = start.to(card), start.clone()
+    before = kmer_hist.launches
+    kmer_hist(got, *(torch.from_numpy(a).to(card)
+                     for a in (mat, npos, pbase)), sign)
+    torch.cuda.synchronize()
+    assert kmer_hist.launches == before + 1
+    kmer_hist_plain(ref, *(torch.from_numpy(a) for a in (mat, npos, pbase)),
+                    sign)
+    assert torch.equal(got.cpu(), ref)
+    added = ref - start
+    if case != "mixed_groups":
+        # the group's key collects every row
+        assert int(added[0].max()) >= n
+    if case == "near_2_31":
+        assert int(added[1].max()) > 1 << 35
+
+
 # ------------------------------------------------ --devices (row slices)
 
 START = "AATGTACTTCGTTCAGTTACGTATTGCT"

@@ -61,6 +61,49 @@ def test_histogram_matches_jax(kind, end_side):
     assert got[2] == want[2] > 0
 
 
+def _hot_matrix(rng, case, n=300):
+    """Window rows whose keys collide at one column, as auto-detection's
+    sample makes them: "end_at_116" puts END at column 116 of every row
+    (the end side's adapter column), "grouped_invalid" puts one of four
+    10-mers at column 40 (two of them equal but for T and U) with bytes
+    outside ACGTU inside some windows and npos 0 or short of the column in
+    others.  Positions stay small, so JAX takes its device route."""
+    mat = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(n, W))
+    npos = np.full(n, 129)
+    base_pos = np.zeros(n, np.int64)
+    lens = np.full(n, W, np.int64)
+    lens[::7] += rng.integers(1, 50, len(lens[::7]))
+    if case == "end_at_116":
+        mat[:, 116:116 + 23] = np.frombuffer(b"AGCAATACGTAACTGAACGAAGT",
+                                             np.uint8)
+        base_pos = lens - W
+    else:
+        mers = (b"ACGTACGTAC", b"TTTTCCCCGG", b"UUUUCCCCGG", b"GATTACAGAT")
+        for i in range(n):
+            mat[i, 40:50] = np.frombuffer(mers[i % 4], np.uint8)
+        mat[::9, 44] = ord("N")
+        mat[1::11, 49] = ord("x")
+        npos[::13] = 0
+        npos[2::17] = 40
+        npos[3::17] = 41
+    return mat, npos, base_pos, lens
+
+
+@pytest.mark.parametrize("end_side", [False, True], ids=["start", "end"])
+@pytest.mark.parametrize("case", ["end_at_116", "grouped_invalid"])
+def test_hot_key_histogram_matches_jax(case, end_side):
+    rng = np.random.default_rng(len(case) + 3 * end_side)
+    args = _hot_matrix(rng, case) + (end_side,)
+    want = jkmer.kmer_histogram_device(*args)
+    got = kmer_histogram(*args, device="cpu")
+    assert want is not None
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2] > 0
+    # the hot key collects its column's rows (T and U rows together)
+    assert want[0].max() >= (250 if case == "end_at_116" else 100)
+
+
 def test_histogram_without_windows_matches_jax():
     rng = np.random.default_rng(3)
     mat, npos, base_pos, lens = _matrix(rng, 20)

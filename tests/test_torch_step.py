@@ -5,7 +5,9 @@ steps get the same packed batches (tests/test_host_step.py's recipe, both
 row layouts, L in {128, 1024}, with low-quality stretches planted where
 break or mask is on): the packed per-read rows and the drained [2, F]
 statistics state must be identical (tolerance 0), with statistics on and
-off.
+off.  The configurations with break or mask are in
+tests/test_torch_step_break_mask.py, which uses the checks here, so that
+the two halves run on two workers.
 """
 
 import numpy as np
@@ -23,8 +25,8 @@ END = "AGCAATACGTAACTGAACGAAGT"
 
 HEADLINE = ["-s", START, "-e", END, "-5", "-3", "-x"]
 
-# tests/test_host_step.py's configurations, and break (-b) and N-mask (-N)
-# alone, together and on the headline
+# tests/test_host_step.py's configurations (break (-b) and N-mask (-N)
+# alone, together and on the headline are BREAK_MASK_CONFIGS)
 CONFIGS = [
     ("filters_only", ["-A"]),
     ("adapters", ["-s", START, "-e", END]),
@@ -34,6 +36,8 @@ CONFIGS = [
     ("cut_only", ["-A", "-5", "-3", "-W", "7", "-M", "25"]),
     ("start_only_polyx", ["-s", START, "-x", "--poly_x_min_len", "8",
                           "--trimming_extension", "3"]),
+]
+BREAK_MASK_CONFIGS = [
     ("break_mask", ["-s", START, "-b", "--break_window_size", "20",
                     "--break_mean_quality", "22", "-N",
                     "--mask_window_size", "15", "--mask_mean_quality",
@@ -99,8 +103,7 @@ def _region_rows(rows, cap):
             int((slot[..., 3] > slot[..., 2]).sum()))
 
 
-@pytest.mark.parametrize("name,extra", CONFIGS, ids=[c[0] for c in CONFIGS])
-def test_kernel_params_match_jax(name, extra):
+def check_kernel_params(extra):
     jopt, topt = _jopt(extra), _topt(extra)
     assert tdev.kernel_params(topt) == jdev.kernel_params(jopt)
     assert tdev.out_fields(topt) == jdev.out_fields(jopt)
@@ -111,10 +114,7 @@ def test_kernel_params_match_jax(name, extra):
         jdev.adapter_stages(jdev.kernel_params(jopt))
 
 
-@pytest.mark.parametrize("with_stats", [True, False], ids=["stats",
-                                                            "nostats"])
-@pytest.mark.parametrize("name,extra", CONFIGS, ids=[c[0] for c in CONFIGS])
-def test_step_matches_jax(name, extra, with_stats):
+def check_step(name, extra, with_stats):
     jopt = _jopt(extra)
     p = jdev.kernel_params(jopt)          # the JAX dict drives both steps
     F = jdev.out_fields(jopt)
@@ -165,6 +165,18 @@ def test_step_matches_jax(name, extra, with_stats):
         assert got.keys() == ref.keys()
         for k in ref:
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name,extra", CONFIGS, ids=[c[0] for c in CONFIGS])
+def test_kernel_params_match_jax(name, extra):
+    check_kernel_params(extra)
+
+
+@pytest.mark.parametrize("with_stats", [True, False], ids=["stats",
+                                                            "nostats"])
+@pytest.mark.parametrize("name,extra", CONFIGS, ids=[c[0] for c in CONFIGS])
+def test_step_matches_jax(name, extra, with_stats):
+    check_step(name, extra, with_stats)
 
 
 def test_stats_state_round_trip():
