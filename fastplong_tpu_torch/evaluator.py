@@ -18,13 +18,13 @@ uses `val`, not `k`).
 """
 
 import sys
-import time
 
 import numpy as np
 
 from . import resolve_device
 from .io.fastq import FastqStreamReader
 from .ops.kmer import kmer_histogram
+from .spans import standalone
 from .util import error_exit
 
 KEYLEN = 10
@@ -55,16 +55,14 @@ class _PrefixSample:
 
 
 class Evaluator:
-    def __init__(self, opt, device=None):
-        """device: where the k-mer fill runs (resolve_device's rule)."""
+    def __init__(self, opt, device=None, spans=None):
+        """device: where the k-mer fill runs (resolve_device's rule);
+        spans: the job's evaluator layer (spans.py), whose totals sum
+        both sides of adapter detection."""
         self.opt = opt
         self.device = resolve_device(device)
+        self.spans = spans or standalone()
         self._sample = None
-        self.seconds = {}    # adapter detection's stages, summed over sides
-
-    def _add_seconds(self, stage, t0):
-        self.seconds[stage] = (self.seconds.get(stage, 0.0)
-                               + time.perf_counter() - t0)
 
     # ------------------------------------------------------ shared sample
 
@@ -206,18 +204,16 @@ class Evaluator:
 
     def _detect(self, counts, posacc, total, end_side):
         opt = self.opt
-        t0 = time.perf_counter()
-        total_key = int((counts > 0).sum())
-        counts[0] = 0  # AAAAAAAAAA
-        key = get_top_key(counts)
-        self._add_seconds("top_key", t0)
+        with self.spans("top_key"):
+            total_key = int((counts > 0).sum())
+            counts[0] = 0  # AAAAAAAAAA
+            key = get_top_key(counts)
         count = int(counts[key]) if key >= 0 else 0
         if count > 10 and count * total_key > total * FOLD_THRESHOLD:
-            t0 = time.perf_counter()
-            adapter = extend_key_to_adapter(
-                key, counts, posacc,
-                is_rna=(opt.is_rna if end_side else False))
-            self._add_seconds("extend", t0)
+            with self.spans("extend"):
+                adapter = extend_key_to_adapter(
+                    key, counts, posacc,
+                    is_rna=(opt.is_rna if end_side else False))
             if len(adapter) > 16:
                 sys.stderr.write("Detected: %s\n" % adapter)
                 if end_side:
@@ -236,11 +232,11 @@ class Evaluator:
     def _kmer_histogram(self, seqs, lens, shift_tail, end_side):
         """counts[KEYSPACE], position accumulator, total valid windows;
         the fill runs on the run's device (ops/kmer.py:kmer_histogram)."""
-        t0 = time.perf_counter()
-        mat, npos, base_pos = window_matrix(seqs, lens, shift_tail, end_side)
-        self._add_seconds("kmer_matrix", t0)
+        with self.spans("kmer_matrix"):
+            mat, npos, base_pos = window_matrix(seqs, lens, shift_tail,
+                                                end_side)
         return kmer_histogram(mat, npos, base_pos, lens, end_side,
-                              self.device, seconds=self.seconds)
+                              self.device, spans=self.spans)
 
 
 def window_matrix(seqs, lens, shift_tail, end_side):

@@ -183,10 +183,11 @@ def build_parser():
            "FASTPLONG_TORCH_DEVICE=cpu, N row slices run on the host. "
            "Default is 1")
     a("--profile", default="",
-      help="write a torch.profiler trace of the run (host ops, and the "
-           "card's kernels on CUDA) into this directory, one "
-           "*.pt.trace.json file that TensorBoard or Perfetto opens "
-           "(extension), disabled by default")
+      help="write a torch.profiler trace of the whole job (host ops, "
+           "the port's fastplong.* spans of the evaluator, runner, step "
+           "and reports, and the card's kernels on CUDA) into this "
+           "directory, one *.pt.trace.json file that TensorBoard or "
+           "Perfetto opens (extension), disabled by default")
     a("--stats_backend", choices=["device", "host", "auto"],
       default=os.environ.get("FASTPLONG_STATS", "auto"),
       help="where run statistics accumulate (extension): "

@@ -18,11 +18,10 @@ evaluator's entry point: the same (counts, posacc, total) as
 kmer_histogram_device, on numpy arrays.
 """
 
-import time
-
 import numpy as np
 import torch
 
+from ..spans import standalone
 from . import cuda_lib
 
 KEYLEN = 10
@@ -87,16 +86,17 @@ def kmer_hist(acc, mat, npos, pbase, sign):
 kmer_hist.launches = 0
 
 
-def kmer_histogram(mat, npos, base_pos, lens, end_side, device,
-                   seconds=None):
+def kmer_histogram(mat, npos, base_pos, lens, end_side, device, spans=None):
     """(counts int64 [KEYSPACE], posacc uint64 [KEYSPACE], total valid
     windows) of one side, as fastplong_tpu/ops/kmer.py:kmer_histogram_device
     returns them, computed on `device` (numpy inputs: mat [n, W + KEYLEN]
     uint8, npos, base_pos and lens [n]).  The start side's position is
-    base_pos + col, the end side's len - base_pos - col.  seconds, if
-    given, gets the wait for the fill ("kmer_fill") and the copy of the
-    accumulator to the host ("kmer_copy") added."""
+    base_pos + col, the end side's len - base_pos - col.  spans, the
+    evaluator's layer (spans.py), times the fill with its wait
+    ("kmer_fill") and the copy of the accumulator to the host
+    ("kmer_copy")."""
     device = torch.device(device)
+    spans = spans or standalone()
     if int(np.sum(npos)) == 0:
         return (np.zeros(KEYSPACE, np.int64), np.zeros(KEYSPACE, np.uint64),
                 0)
@@ -106,18 +106,15 @@ def kmer_histogram(mat, npos, base_pos, lens, end_side, device,
     else:
         pbase = np.asarray(base_pos, np.int64)
         sign = 1
-    t0 = time.perf_counter()
-    acc = torch.zeros((2, KEYSPACE), dtype=torch.int64, device=device)
-    kmer_hist(acc, torch.from_numpy(np.ascontiguousarray(mat)).to(device),
-              torch.from_numpy(np.asarray(npos, np.int32)).to(device),
-              torch.from_numpy(pbase).to(device), sign)
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-    t1 = time.perf_counter()
-    host = acc.cpu().numpy()
-    t2 = time.perf_counter()
-    if seconds is not None:
-        seconds["kmer_fill"] = seconds.get("kmer_fill", 0.0) + t1 - t0
-        seconds["kmer_copy"] = seconds.get("kmer_copy", 0.0) + t2 - t1
+    with spans("kmer_fill"):
+        acc = torch.zeros((2, KEYSPACE), dtype=torch.int64, device=device)
+        kmer_hist(acc,
+                  torch.from_numpy(np.ascontiguousarray(mat)).to(device),
+                  torch.from_numpy(np.asarray(npos, np.int32)).to(device),
+                  torch.from_numpy(pbase).to(device), sign)
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+    with spans("kmer_copy"):
+        host = acc.cpu().numpy()
     counts = host[0]
     return counts, host[1].view(np.uint64), int(counts.sum())

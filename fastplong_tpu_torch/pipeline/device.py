@@ -35,6 +35,7 @@ from ..ops.qualcut import trim_and_cut
 from ..ops.regions import detect_regions_summary
 from ..ops.stats_kernels import (FLAT_PER_L, flat_side_len, side_stat_len,
                                  stat_batch_into)
+from ..spans import child
 
 TAG_NONE = 0
 TAG_SPLIT_LEFT = 1
@@ -174,7 +175,12 @@ def build_step(p, device=None, with_stats=True):
     into state[0] and its post-filter statistics into state[1] ([2, F]
     int64, in place) and returns the medians ("pre_median" [B],
     "post_median" [S, B]); with_stats=False omits the statistics (state is
-    not read, the medians are None)."""
+    not read, the medians are None).  Inside a span (spans.child), each
+    stage that runs is a span of its own ("step.stats_pre",
+    "step.trim_cut", "step.polyx", "step.adapter", "step.middle_split",
+    "step.regions", "step.filters", "step.stats_post"): the host's issue
+    time, and under a profiler the range that holds the ops and kernels
+    the stage issued."""
     device = resolve_device(device)
     stages = adapter_stages(p)
     specs = [AdapterSpec(seq, p["ed_max"], device) for seq, _ in stages]
@@ -189,24 +195,28 @@ def build_step(p, device=None, with_stats=True):
         lens = torch.where(read_mask, lens, 0)
         pre_median = None
         if with_stats:
-            pre_median = stat_batch_into(
-                state[0], bases, quals, torch.zeros_like(lens)[None],
-                lens[None], read_mask[None], zero_lo=True)[0]
+            with child("step.stats_pre"):
+                pre_median = stat_batch_into(
+                    state[0], bases, quals, torch.zeros_like(lens)[None],
+                    lens[None], read_mask[None], zero_lo=True)[0]
 
-        lo, hi, null = trim_and_cut(
-            bases, quals, lens, p["trim_front"], p["trim_tail"], **p["cut"])
-        null = null | ~read_mask
-        lo = torch.where(null, 0, lo)
-        hi = torch.where(null, 0, hi)
+        with child("step.trim_cut"):
+            lo, hi, null = trim_and_cut(
+                bases, quals, lens, p["trim_front"], p["trim_tail"],
+                **p["cut"])
+            null = null | ~read_mask
+            lo = torch.where(null, 0, lo)
+            hi = torch.where(null, 0, hi)
 
         poly = torch.full((B,), -1, **i32)
         poly_trim = torch.zeros((B,), **i32)
         if p["polyx_enabled"]:
-            new_hi, poly_b, ptrim = trim_polyx(bases, lo, hi,
-                                               p["polyx_min_len"])
-            hi = torch.where(null, hi, new_hi)
-            poly = torch.where(null, -1, poly_b)
-            poly_trim = torch.where(null, 0, ptrim)
+            with child("step.polyx"):
+                new_hi, poly_b, ptrim = trim_polyx(bases, lo, hi,
+                                                   p["polyx_min_len"])
+                hi = torch.where(null, hi, new_hi)
+                poly = torch.where(null, -1, poly_b)
+                poly_trim = torch.where(null, 0, ptrim)
 
         # ---- adapter trimming (each stage mutates the span in turn); the
         # raw-position mismatch scan depends only on (bases, adapter), so
@@ -222,74 +232,81 @@ def build_step(p, device=None, with_stats=True):
         trimmed_total = torch.zeros((B,), **i32)
         recs = []
         for spec, (seq, side) in zip(specs, stages):
-            if side == "start":
-                new_lo, t, rec = trim_by_sequence_start(
-                    bases, lo, hi, spec, p["ext"], mm=mm_for(spec))
-                lo = torch.where(null, lo, new_lo)
-            else:
-                new_hi, t, rec = trim_by_sequence_end(
-                    bases, lo, hi, spec, p["ext"], mm=mm_for(spec))
-                hi = torch.where(null, hi, new_hi)
-            trimmed_total = trimmed_total + torch.where(null, 0, t)
-            recs.append(torch.where(null, 0, rec))
+            with child("step.adapter"):
+                if side == "start":
+                    new_lo, t, rec = trim_by_sequence_start(
+                        bases, lo, hi, spec, p["ext"], mm=mm_for(spec))
+                    lo = torch.where(null, lo, new_lo)
+                else:
+                    new_hi, t, rec = trim_by_sequence_end(
+                        bases, lo, hi, spec, p["ext"], mm=mm_for(spec))
+                    hi = torch.where(null, hi, new_hi)
+                trimmed_total = trimmed_total + torch.where(null, 0, t)
+                recs.append(torch.where(null, 0, rec))
 
         zero = torch.zeros((B,), **i32)
         false = torch.zeros((B,), dtype=torch.bool, device=bases.device)
 
         # ---- middle adapter split (breakByGap)
         if middle_specs is not None:
-            found, mstart, mlen = find_middle_adapters(
-                bases, lo, hi, middle_specs[0], middle_specs[1], p["ext"],
-                mm_start=mm_for(middle_specs[0]),
-                mm_end=mm_for(middle_specs[1]))
-            found = found & ~null
-            len1 = mstart
-            len2 = (hi - lo) - mstart - mlen
-            has_left = found & (len1 > 0)
-            has_right = found & (len2 > 0)
-            s0_is_parent = ~found
-            s0_is_left = found & has_left
-            s0_lo = torch.where(s0_is_parent | s0_is_left, lo,
-                                lo + mstart + mlen)
-            s0_hi = torch.where(s0_is_parent, hi,
-                                torch.where(s0_is_left, lo + len1, hi))
-            s0_tag = torch.where(s0_is_parent, TAG_NONE,
-                                 torch.where(s0_is_left, TAG_SPLIT_LEFT,
-                                             TAG_SPLIT_RIGHT)).to(torch.int32)
-            slots = Slots(
-                torch.stack([s0_lo, lo + mstart + mlen]),
-                torch.stack([s0_hi, hi]),
-                torch.stack([~null & (~found | has_left | has_right),
-                             has_left & has_right]),
-                torch.stack([s0_tag, zero + TAG_SPLIT_RIGHT]),
-                torch.zeros((2, B), **i32),
-                torch.stack([s0_is_parent, false]))
+            with child("step.middle_split"):
+                found, mstart, mlen = find_middle_adapters(
+                    bases, lo, hi, middle_specs[0], middle_specs[1],
+                    p["ext"], mm_start=mm_for(middle_specs[0]),
+                    mm_end=mm_for(middle_specs[1]))
+                found = found & ~null
+                len1 = mstart
+                len2 = (hi - lo) - mstart - mlen
+                has_left = found & (len1 > 0)
+                has_right = found & (len2 > 0)
+                s0_is_parent = ~found
+                s0_is_left = found & has_left
+                s0_lo = torch.where(s0_is_parent | s0_is_left, lo,
+                                    lo + mstart + mlen)
+                s0_hi = torch.where(s0_is_parent, hi,
+                                    torch.where(s0_is_left, lo + len1, hi))
+                s0_tag = torch.where(
+                    s0_is_parent, TAG_NONE,
+                    torch.where(s0_is_left, TAG_SPLIT_LEFT,
+                                TAG_SPLIT_RIGHT)).to(torch.int32)
+                slots = Slots(
+                    torch.stack([s0_lo, lo + mstart + mlen]),
+                    torch.stack([s0_hi, hi]),
+                    torch.stack([~null & (~found | has_left | has_right),
+                                 has_left & has_right]),
+                    torch.stack([s0_tag, zero + TAG_SPLIT_RIGHT]),
+                    torch.zeros((2, B), **i32),
+                    torch.stack([s0_is_parent, false]))
         else:
             slots = Slots(lo[None], hi[None], ~null[None], zero[None],
                           zero[None], ~false[None])
 
         # ---- break by low-quality regions, then N-mask every final slot;
         # the mask lands in the bases that the filters and post-stats read
-        cq = (qual_cumsum(quals, lens)
-              if p["break_enabled"] or p["mask_enabled"] else None)
-        if p["break_enabled"]:
-            slots = break_slots(slots, cq, p["break_window"],
-                                p["break_quality"])
+        if p["break_enabled"] or p["mask_enabled"]:
+            with child("step.regions"):
+                cq = qual_cumsum(quals, lens)
+                if p["break_enabled"]:
+                    slots = break_slots(slots, cq, p["break_window"],
+                                        p["break_quality"])
         bases_eff = bases
         mask_lo = mask_hi = torch.zeros_like(slots.lo)
         if p["mask_enabled"]:
-            bases_eff, mask_lo, mask_hi = mask_slots(
-                bases, slots, cq, p["mask_window"], p["mask_quality"])
+            with child("step.regions"):
+                bases_eff, mask_lo, mask_hi = mask_slots(
+                    bases, slots, cq, p["mask_window"], p["mask_quality"])
 
         # ---- filters per out-read slot, then the post-stats of all slots
-        codes = [pass_filter(bases_eff, quals, slots.lo[c], slots.hi[c],
-                             lens, **p["filt"])
-                 for c in range(slots.lo.shape[0])]
-        passed = (torch.stack(codes) == PASS_FILTER) & slots.active
+        with child("step.filters"):
+            codes = [pass_filter(bases_eff, quals, slots.lo[c], slots.hi[c],
+                                 lens, **p["filt"])
+                     for c in range(slots.lo.shape[0])]
+            passed = (torch.stack(codes) == PASS_FILTER) & slots.active
         post_median = None
         if with_stats:
-            post_median = stat_batch_into(state[1], bases_eff, quals,
-                                          slots.lo, slots.hi, passed)
+            with child("step.stats_post"):
+                post_median = stat_batch_into(state[1], bases_eff, quals,
+                                              slots.lo, slots.hi, passed)
 
         active = slots.active.T
         return {
@@ -434,15 +451,16 @@ def build_fast_step(p, device=None, with_stats=True):
                     region_no) where misc = code | tag<<6 | passed<<8 |
                     is_parent<<9 | active<<10 | post_median<<11
       5 + cap*6 ...: adapter_recs per stage
+
+    Inside a span (spans.child), the unpacking ("step.unpack") and the
+    packing of the rows ("step.pack") are spans, beside build_step's.
     """
     device = resolve_device(device)
     step, stages = build_step(p, device, with_stats)
     cap = params_cap(p)
     lut = torch.from_numpy(_B5_BASE_LUT.copy()).to(device)
 
-    def core(packed_in, L, state=None):
-        bases, quals, lens, read_mask = unpack_on_device(packed_in, L, lut)
-        out = step(bases, quals, lens, read_mask, state)
+    def pack(out):
         zero = torch.zeros_like(out["lo"])
 
         def i32(x):
@@ -470,6 +488,14 @@ def build_fast_step(p, device=None, with_stats=True):
                      out["region_no"][:, c]]
         cols += list(out["adapter_recs"].unbind(1))
         return torch.stack([i32(c) for c in cols], dim=1)
+
+    def core(packed_in, L, state=None):
+        with child("step.unpack"):
+            bases, quals, lens, read_mask = unpack_on_device(packed_in, L,
+                                                             lut)
+        out = step(bases, quals, lens, read_mask, state)
+        with child("step.pack"):
+            return pack(out)
 
     if not with_stats:
         return core, stages

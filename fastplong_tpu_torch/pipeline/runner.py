@@ -25,7 +25,6 @@ means device.
 """
 
 import contextlib
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,6 +35,7 @@ from ..common import stat_device_cap
 from ..filter_result import FilterResult
 from ..io.fastq import FastqStreamReader, RecordBlock
 from ..io.writer import make_output_writer
+from ..spans import standalone
 from ..stats import Stats
 from ..util import loginfo
 from .batches import BatchBuilder, bucket_groups
@@ -49,19 +49,6 @@ from .split import SplitWriterSet
 
 MAX_IN_FLIGHT = 3          # batches dispatched but not yet consumed
 MAX_BLOCKS_PENDING = 24    # parsed blocks held before forcing drains
-
-
-class StageTimer:
-    """Wall-time accounting per pipeline stage."""
-
-    def __init__(self):
-        self.seconds = {}
-
-    def add(self, stage, dt):
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + dt
-
-    def report(self):
-        return {k: round(v, 4) for k, v in sorted(self.seconds.items())}
 
 
 class PackedResults:
@@ -115,12 +102,14 @@ class BlockResults:
 
 
 class SingleEndRunner:
-    def __init__(self, opt, device=None, devices=None):
+    def __init__(self, opt, device=None, devices=None, spans=None):
         """device follows resolve_device; opt.devices above 1 runs on that
         many devices (sharding.make_devices).  devices, a list in which a
         device may repeat, runs one row slice on each and overrides
-        both."""
+        both.  spans: the job's stage layer (spans.py), which times the
+        runner's stages and, inside `dispatch`, the step's."""
         self.opt = opt
+        self.spans = spans or standalone()
         if devices is None:
             devices = (make_devices(opt.devices, device) if opt.devices > 1
                        else [device])
@@ -157,7 +146,6 @@ class SingleEndRunner:
         self.failed_writer = None
         self.split_set = None    # --split/--split_by_lines writers
         self.reader = None
-        self.timer = StageTimer()
         self.step_calls = 0      # step launches (one per non-empty slice)
 
     def _nostats(self, placement):
@@ -213,17 +201,57 @@ class SingleEndRunner:
             else opt.in_file, byte_range=opt.byte_range)
         if opt.verbose:
             loginfo("start to load data")
-        timer = self.timer
-        builders = {}
+        span = self.spans
         self._block_queue = []   # [block, BlockResults, outstanding reads]
         self._in_flight = deque()
+        with span("total_loop"):
+            self._read_all(reader)
+
+        with span("writer_close"):
+            if self.split_set is not None:
+                self.split_set.close()
+            for w in (self.out_writer, self.failed_writer):
+                if w is not None:
+                    w.close()
+
+        with span("stats_finish"):
+            if self.states is not None:
+                with span("stats_fetch"):
+                    flat, m = stats_state_to_numpy(self.states,
+                                                   self.max_seen)
+                self.pre_stats.add_device_partial(unflatten_side(flat[0], m))
+                self.post_stats.add_device_partial(
+                    unflatten_side(flat[1], m))
+            parts = [(self.pre_stats, self._host_pre.partial()),
+                     (self.post_stats, self._host_post.partial())]
+            if self.host_stats_mode:
+                self._stats_pool.shutdown(wait=True)
+                parts += [(self.pre_stats, self._batch_pre.partial()),
+                          (self.post_stats, self._batch_post.partial())]
+            for stats, part in parts:
+                if part is not None:
+                    stats.add_device_partial(part)
+            with span("stats_summarize"):
+                for stats in (self.pre_stats, self.post_stats):
+                    stats.summarize()
+                    stats.calc_length_histogram()
+        if opt.verbose:
+            loginfo("stage seconds: %s" % {
+                k: round(v, 4) for k, v in sorted(span.seconds.items())})
+        return self.pre_stats, self.post_stats, self.filter_result
+
+    def _read_all(self, reader):
+        """Parse the input block by block, pack its reads into length
+        buckets and dispatch each full batch; then ship the partial
+        batches and drain every batch in flight."""
+        opt = self.opt
+        span = self.spans
+        builders = {}
         processed = 0
         last_reported = 0
-        t_run0 = time.perf_counter()
         while True:
-            t0 = time.perf_counter()
-            block = reader.next_block()
-            timer.add("read_parse", time.perf_counter() - t0)
+            with span("read_parse"):
+                block = reader.next_block()
             if block is None:
                 break
             if opt.reads_to_process > 0:
@@ -251,9 +279,8 @@ class SingleEndRunner:
                 pos = 0
                 while pos < len(take):
                     k = min(b.space, len(take) - pos)
-                    t0 = time.perf_counter()
-                    b.add(block, take[pos:pos + k])
-                    timer.add("pack", time.perf_counter() - t0)
+                    with span("pack"):
+                        b.add(block, take[pos:pos + k])
                     pos += k
                     if b.full:
                         self._dispatch(b.take_batch())
@@ -273,37 +300,6 @@ class SingleEndRunner:
         if self._block_queue:
             raise RuntimeError("incomplete blocks at end of input")
         reader.close()
-        timer.add("total_loop", time.perf_counter() - t_run0)
-
-        t0 = time.perf_counter()
-        if self.split_set is not None:
-            self.split_set.close()
-        for w in (self.out_writer, self.failed_writer):
-            if w is not None:
-                w.close()
-        timer.add("writer_close", time.perf_counter() - t0)
-
-        t0 = time.perf_counter()
-        if self.states is not None:
-            flat, m = stats_state_to_numpy(self.states, self.max_seen)
-            self.pre_stats.add_device_partial(unflatten_side(flat[0], m))
-            self.post_stats.add_device_partial(unflatten_side(flat[1], m))
-        parts = [(self.pre_stats, self._host_pre.partial()),
-                 (self.post_stats, self._host_post.partial())]
-        if self.host_stats_mode:
-            self._stats_pool.shutdown(wait=True)
-            parts += [(self.pre_stats, self._batch_pre.partial()),
-                      (self.post_stats, self._batch_post.partial())]
-        for stats, part in parts:
-            if part is not None:
-                stats.add_device_partial(part)
-        for stats in (self.pre_stats, self.post_stats):
-            stats.summarize()
-            stats.calc_length_histogram()
-        timer.add("stats_finish", time.perf_counter() - t0)
-        if opt.verbose:
-            loginfo("stage seconds: %s" % timer.report())
-        return self.pre_stats, self.post_stats, self.filter_result
 
     # -------------------------------------------------------------- batches
 
@@ -311,50 +307,46 @@ class SingleEndRunner:
         """Copy one batch's row slices to their devices, launch the step on
         each and queue the copies of their rows back into one pinned host
         buffer (all asynchronous, each on its device's current stream)."""
-        t0 = time.perf_counter()
-        n = int(batch.read_mask.sum())
-        if n < batch.packed.shape[0]:
-            # a partial batch: its rows are a prefix, the rest is padding
-            batch.packed = batch.packed[:n]
-            batch.lens = batch.lens[:n]
-            batch.read_mask = batch.read_mask[:n]
-        monster = batch.L > self.stat_cap
-        if self.host_stats_mode and not monster:
-            batch.pre_medians = self._stats_pool.submit(
-                self._timed_pre_rows, batch)
-        placement = self._monster_placement if monster else self.placement
-        x, parts = placement.split_rows(batch.packed)
-        if monster or self.host_stats_mode:
-            rows, events = self._nostats(placement)(parts, batch.L)
-        else:
-            if self.states is None:
-                self.states = placement.init_state(global_stat_len())
-            rows, events = self.step(self.states, parts, batch.L)
-            self.max_seen = max(self.max_seen, int(batch.lens.max()))
-        self.step_calls += sum(part is not None for part, _, _ in parts)
-        if not (self.host_stats_mode and not monster):
-            batch.packed = None   # the host pass no longer needs the feed
-        # x stays referenced until the batch is consumed: its pinned pages
-        # must outlive the asynchronous copies
-        self._in_flight.append((batch, rows, events, x))
-        self.timer.add("dispatch", time.perf_counter() - t0)
+        with self.spans("dispatch"):
+            n = int(batch.read_mask.sum())
+            if n < batch.packed.shape[0]:
+                # a partial batch: its rows are a prefix, the rest is padding
+                batch.packed = batch.packed[:n]
+                batch.lens = batch.lens[:n]
+                batch.read_mask = batch.read_mask[:n]
+            monster = batch.L > self.stat_cap
+            if self.host_stats_mode and not monster:
+                batch.pre_medians = self._stats_pool.submit(
+                    self._timed_pre_rows, batch)
+            placement = self._monster_placement if monster else self.placement
+            x, parts = placement.split_rows(batch.packed)
+            if monster or self.host_stats_mode:
+                rows, events = self._nostats(placement)(parts, batch.L)
+            else:
+                if self.states is None:
+                    self.states = placement.init_state(global_stat_len())
+                rows, events = self.step(self.states, parts, batch.L)
+                self.max_seen = max(self.max_seen, int(batch.lens.max()))
+            self.step_calls += sum(part is not None for part, _, _ in parts)
+            if not (self.host_stats_mode and not monster):
+                batch.packed = None   # the host pass no longer needs the feed
+            # x stays referenced until the batch is consumed: its pinned pages
+            # must outlive the asynchronous copies
+            self._in_flight.append((batch, rows, events, x))
         while len(self._in_flight) > MAX_IN_FLIGHT:
             self._drain_one()
 
     def _drain_one(self):
         batch, rows, events, _ = self._in_flight.popleft()
-        t0 = time.perf_counter()
-        for event in events:
-            event.synchronize()
-        self.timer.add("device_wait", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        self._consume_batch(rows.numpy(), batch)
-        self.timer.add("accumulate", time.perf_counter() - t0)
+        with self.spans("device_wait"):
+            for event in events:
+                event.synchronize()
+        with self.spans("accumulate"):
+            self._consume_batch(rows.numpy(), batch)
         while self._block_queue and self._block_queue[0][2] == 0:
             block, res, _ = self._block_queue.pop(0)
-            t0 = time.perf_counter()
-            self._emit(block, res)
-            self.timer.add("emit", time.perf_counter() - t0)
+            with self.spans("emit"):
+                self._emit(block, res)
 
     def _consume_batch(self, rows, batch):
         """Decode one batch's packed rows and route the results."""
@@ -362,9 +354,11 @@ class SingleEndRunner:
             batch.pre_medians = batch.pre_medians.result()
         out = PackedResults(rows, self.cap, len(self.stages))
         if batch.L > self.stat_cap:
-            self._host_stat_batch(out, batch)
+            with self.spans("host_stats"):
+                self._host_stat_batch(out, batch)
         elif self.host_stats_mode:
-            self._host_post_batch(out, batch)
+            with self.spans("host_stats"):
+                self._host_post_batch(out, batch)
         order = np.full(len(batch.lens), 1 << 60, np.int64)
         for seg in batch.segments:
             order[seg.row_start:seg.row_start + len(seg.indices)] = (
@@ -377,17 +371,14 @@ class SingleEndRunner:
             entry[2] -= len(seg.indices)
 
     def _timed_pre_rows(self, batch):
-        t0 = time.perf_counter()
-        med = self._batch_pre.add_rows(
-            batch.packed, batch.L, None, batch.lens.astype(np.int64), None,
-            None, batch.read_mask, batch.layout)
-        self.timer.add("host_stats_pre", time.perf_counter() - t0)
-        return med
+        with self.spans("host_stats_pre"):
+            return self._batch_pre.add_rows(
+                batch.packed, batch.L, None, batch.lens.astype(np.int64),
+                None, None, batch.read_mask, batch.layout)
 
     def _host_post_batch(self, out, batch):
         """Host-statistics mode: post statRead per out-slot in one native
         pass per slot over the batch's packed rows; fills the medians."""
-        t0 = time.perf_counter()
         out.pre_median = batch.pre_medians
         for c in range(self.cap):
             pass_c = out.passed[:, c]
@@ -403,13 +394,11 @@ class SingleEndRunner:
             out.post_median[:, c] = np.where(pass_c, med,
                                              out.post_median[:, c])
         batch.packed = None
-        self.timer.add("host_stats", time.perf_counter() - t0)
 
     def _host_stat_batch(self, out, batch):
         """Host statRead for one monster batch (its device step is
         stats-free): fills the medians and the host accumulators, with the
         arithmetic of ops/stats_kernels.stat_batch."""
-        t0 = time.perf_counter()
         for seg in batch.segments:
             blk = seg.block
             for k, i in enumerate(seg.indices):
@@ -433,7 +422,6 @@ class SingleEndRunner:
                              if self.mask_on else seq[lo:hi])
                     self._host_post.add_read(b_eff, qual[lo:hi])
                     out.post_median[row, c] = median_qual(qual[lo:hi])
-        self.timer.add("host_stats", time.perf_counter() - t0)
 
     def _accumulate(self, out, batch, order):
         cap = self.cap

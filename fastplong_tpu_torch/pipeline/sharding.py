@@ -21,6 +21,7 @@ run two slices on one card (pipeline/runner.py: SingleEndRunner's
 import torch
 
 from .. import resolve_device
+from ..spans import child
 from ..util import error_exit
 from .device import (adapter_stages, build_fast_step, build_step,
                      params_fields, stats_state_to_numpy, zero_stats_state)
@@ -99,7 +100,10 @@ def build_fast_sharded_step(p, placement, with_stats=True):
     it asynchronously, and events holds one CUDA event per slice launched
     on a card, recorded on that device's current stream after the copy:
     wait on all of them before reading rows.  Every non-empty slice is
-    launched before any is waited on; an empty slice launches nothing."""
+    launched before any is waited on; an empty slice launches nothing.
+    Inside a span (the runner's `dispatch`), each slice's step call and
+    the copy of its rows is the span "step" (spans.child), which holds
+    the step's stages."""
     steps = _per_device(
         placement, lambda d: build_fast_step(p, d, with_stats)[0])
     F = params_fields(p)
@@ -111,9 +115,10 @@ def build_fast_sharded_step(p, placement, with_stats=True):
         for i, (x, r0, r1) in enumerate(parts):
             if x is None:
                 continue
-            out = (steps[i](states[i], x, L) if with_stats
-                   else steps[i](x, L))
-            rows[r0:r1].copy_(out, non_blocking=True)
+            with child("step"):
+                out = (steps[i](states[i], x, L) if with_stats
+                       else steps[i](x, L))
+                rows[r0:r1].copy_(out, non_blocking=True)
             if x.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(x.device))

@@ -6,30 +6,36 @@ adapter auto-detection, read-count estimation for splitting), option
 validation, then the pipeline run and reports (src/seprocessor.cpp:105-146).
 """
 
+import contextlib
 import json
 import os
 import sys
-import time
 
 from . import resolve_device
 from .evaluator import Evaluator
 from .report.html_report import report_html
 from .report.json_report import report_json
+from .spans import Spans
 
 
-def _profiled_run(runner, trace_dir):
-    """--profile DIR: runner.run() under torch.profiler (host ops, and the
-    card's kernels when the run is on CUDA), written into DIR as one
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """--profile DIR: the whole job (evaluator, runner and reports) under
+    torch.profiler (host ops and the port's spans, and the card's kernels
+    when the job runs on CUDA), written into DIR as one
     <host>_<pid>.<ms>.pt.trace.json that TensorBoard's PyTorch profiler
-    plugin and Perfetto open."""
+    plugin and Perfetto open.  Without DIR it profiles nothing."""
+    if not trace_dir:
+        yield
+        return
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]
-    if runner.device.type == "cuda":
+    if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(trace_dir)):
-        return runner.run()
+        yield
 
 
 def _launch_counts():
@@ -58,19 +64,62 @@ def process(opt, device=None, devices=None):
     (SingleEndRunner); the evaluator runs on the first device."""
     from .pipeline.runner import SingleEndRunner
     device = resolve_device(device if devices is None else devices[0])
-    phases = {}
+    spans = Spans()
+    phase = spans.layer("phase_seconds")
     launches0 = _launch_counts()
-    t0 = time.perf_counter()
+    with _profiled(opt.profile_dir, device), phase("job"):
+        with phase("evaluator"):
+            eva = Evaluator(opt, device, spans.layer("evaluator_seconds"))
+            _evaluate(opt, eva)
+        with phase("runner_init"):
+            runner = SingleEndRunner(opt, device, devices,
+                                     spans.layer("stage_seconds"))
+        with phase("runner_run"):
+            pre_stats, post_stats, filter_result = runner.run()
+        with phase("reports"):
+            if opt.verbose:
+                from .util import loginfo
+                loginfo("start to generate reports\n")
+            with phase("report_summary"):
+                sys.stderr.write("Before filtering:\n")
+                pre_stats.print_summary(sys.stderr)
+                sys.stderr.write("\n")
+                sys.stderr.write("After filtering:\n")
+                post_stats.print_summary(sys.stderr)
+                sys.stderr.write("\n")
+                sys.stderr.write("Filtering result:\n")
+                filter_result.print_summary(sys.stderr, opt)
+            with phase("report_json"):
+                report_json(opt, filter_result, pre_stats, post_stats)
+            with phase("report_html"):
+                report_html(opt, filter_result, pre_stats, post_stats)
+
+    dump = os.environ.get("FASTPLONG_TIMER_DUMP")
+    if dump:
+        # diagnostics: this job's spans by layer (phase_seconds,
+        # evaluator_seconds, stage_seconds), its step calls and launches
+        with open(dump, "w") as f:
+            json.dump({"device": str(runner.device), **spans.report(),
+                       "step_calls": runner.step_calls,
+                       # this job's launches alone
+                       "launches": {k: v - launches0[k] for k, v
+                                    in _launch_counts().items()}}, f)
+    return pre_stats, post_stats, filter_result
+
+
+def _evaluate(opt, eva):
+    """The evaluator's pre-passes (sequence length and RNA, adapter
+    auto-detection, the read count for --split) and option validation."""
     support_evaluation = (not opt.input_from_stdin
                           and opt.in_file != "/dev/stdin")
-
-    eva = Evaluator(opt, device)
     if support_evaluation:
         # one shared prefix pass feeds seq-len/RNA, adapter detection and
         # read-count estimation
-        eva.load_prefix(opt.shall_detect_adapter(),
-                        opt.split.need_evaluation)
-        eva.evaluate_seq_len_and_check_rna()
+        with eva.spans("prefix"):
+            eva.load_prefix(opt.shall_detect_adapter(),
+                            opt.split.need_evaluation)
+        with eva.spans("seq_len_rna"):
+            eva.evaluate_seq_len_and_check_rna()
 
     read_num = 0
     if opt.shall_detect_adapter():
@@ -84,55 +133,10 @@ def process(opt, device=None, devices=None):
 
     if opt.split.need_evaluation and support_evaluation:
         if read_num == 0:
-            read_num = eva.evaluate_read_num()
+            with eva.spans("read_num"):
+                read_num = eva.evaluate_read_num()
         opt.split.size = read_num // opt.split.number
         if opt.split.size <= 0:
             opt.split.size = 1
             sys.stderr.write("WARNING: the input file has less reads than the"
                              " number of files to split\n")
-
-    phases["evaluator"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    runner = SingleEndRunner(opt, device, devices)
-    phases["runner_init"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if opt.profile_dir:
-        pre_stats, post_stats, filter_result = _profiled_run(
-            runner, opt.profile_dir)
-    else:
-        pre_stats, post_stats, filter_result = runner.run()
-    phases["runner_run"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-
-    if opt.verbose:
-        from .util import loginfo
-        loginfo("start to generate reports\n")
-
-    sys.stderr.write("Before filtering:\n")
-    pre_stats.print_summary(sys.stderr)
-    sys.stderr.write("\n")
-    sys.stderr.write("After filtering:\n")
-    post_stats.print_summary(sys.stderr)
-    sys.stderr.write("\n")
-    sys.stderr.write("Filtering result:\n")
-    filter_result.print_summary(sys.stderr, opt)
-
-    report_json(opt, filter_result, pre_stats, post_stats)
-    report_html(opt, filter_result, pre_stats, post_stats)
-    phases["reports"] = time.perf_counter() - t0
-
-    dump = os.environ.get("FASTPLONG_TIMER_DUMP")
-    if dump:
-        # diagnostics: per-phase and per-stage wall breakdown of this run
-        with open(dump, "w") as f:
-            json.dump({"device": str(runner.device),
-                       "phase_seconds": {k: round(v, 4)
-                                         for k, v in phases.items()},
-                       "evaluator_seconds": {k: round(v, 4) for k, v
-                                             in eva.seconds.items()},
-                       "stage_seconds": runner.timer.report(),
-                       "step_calls": runner.step_calls,
-                       # this job's launches alone
-                       "launches": {k: v - launches0[k] for k, v
-                                    in _launch_counts().items()}}, f)
-    return pre_stats, post_stats, filter_result

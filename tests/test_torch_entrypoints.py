@@ -64,8 +64,12 @@ def test_profile_matches_jax_and_writes_trace(tmp_path, cpu):
     assert len(traces) == 1, os.listdir(prof)
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
-    # the run's host ops are in it (on the CPU there is no kernel event)
+    # the run's host ops are in it (on the CPU there is no kernel event),
+    # and the whole job's spans: the evaluator's and the reports' too
     assert any(e.get("cat") == "cpu_op" for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"fastplong.job", "fastplong.evaluator", "fastplong.runner_run",
+            "fastplong.report_json", "fastplong.report_html"} <= spans
 
 
 # ------------------------------------------------------------------ --prewarm
