@@ -58,13 +58,16 @@ FETCH_GROUP = int(_os.environ.get("FASTPLONG_FETCH_GROUP", 16))
 
 
 def stat_device_cap():
-    """Bucket length above which per-cycle statistics move to the host.
+    """Bucket length above which a bucket's statistics leave the run's
+    per-slice accumulators.
 
-    The reference grows its per-cycle buffers dynamically (stats.cpp:75-119)
-    so a single 8Mbp read costs 8M*8 counters only once, on the host.  Our
-    device accumulators are per-bucket [34*L] resident tensors — fine up to
-    ~64Kbp, ruinous for monster buckets (1GB+ per side at 8Mbp).  Buckets
-    longer than this cap run the stats-free device step and their reads are
-    statted by pipeline/host_stats.py instead (identical arithmetic).
-    Read per call so tests can lower it cheaply."""
+    Every bucket at or under the cap adds into the [2, F] accumulators of
+    one cycle length, global_stat_len() (pipeline/device.py), one per row
+    slice.  A longer (monster) bucket adds into a second accumulator on
+    the first device, made at its own length and grown as longer buckets
+    come, the way the reference grows its per-cycle buffers
+    (stats.cpp:75-119); a bucket whose accumulator would pass a share of
+    the card's free memory (device.stats_state_budget) is statted on the
+    host instead (pipeline/host_stats.py, identical arithmetic).  Read per
+    call so tests can lower it cheaply."""
     return int(_os.environ.get("FASTPLONG_STAT_DEVICE_CAP", 1 << 16))

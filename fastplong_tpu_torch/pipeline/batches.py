@@ -129,7 +129,7 @@ class Segment:
 
 class Batch:
     __slots__ = ("packed", "lens", "read_mask", "segments", "L", "layout",
-                 "pre_medians", "_queued", "full_rows")
+                 "pre_medians", "host_monster", "_queued", "full_rows")
 
     def __init__(self, packed, lens, read_mask, segments, L, layout="b5"):
         self.packed = packed        # [B, L+8] (base5) or [B, 2L+8] (wide)
@@ -139,6 +139,7 @@ class Batch:
         self.L = L
         self.layout = layout
         self.pre_medians = None     # host-stats mode: per-row median bytes
+        self.host_monster = False   # a monster batch statted on the host
         self._queued = False        # set with the bs.pending append
                                     # (runner._device_dispatch, under lock)
         self.full_rows = packed.shape[0]  # bucket ring row count (a

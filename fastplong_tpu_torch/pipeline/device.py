@@ -352,6 +352,32 @@ def zero_stats_state(L, device):
                        device=device)
 
 
+def grow_stats_state(state, L):
+    """`state` at the longer cycle length L, on its device: the old cycle
+    block is the new one's prefix, the tail (q20, q30, histogram, k-mers)
+    moves to the new tail, the cycles beyond the old length are zero.  Two
+    device copies; nothing waits on the device."""
+    old = FLAT_PER_L * side_stat_len(state)
+    grown = zero_stats_state(L, state.device)
+    grown[:, :old].copy_(state[:, :old])
+    grown[:, FLAT_PER_L * L:].copy_(state[:, old:])
+    return grown
+
+
+# the share of the device's free memory that one accumulator may take when
+# it is made or grown
+STATE_MEMORY_SHARE = 16
+
+
+def stats_state_budget(device):
+    """Bytes a [2, F] accumulator on `device` may take when it is made or
+    grown: a STATE_MEMORY_SHARE-th of the card's free memory at that moment
+    (torch.cuda.mem_get_info); None (no limit) off a card."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0] // STATE_MEMORY_SHARE
+
+
 def unflatten_side(flat, L):
     """Split one drained flat side vector (numpy) into the named arrays.
     L is the cycle count of the (possibly trimmed) cycle block."""
@@ -377,10 +403,11 @@ def stats_state_to_numpy(states, max_seen=None):
     under --devices, pipeline/sharding.py), as host int64, with the cycle
     block cut at the power of two covering the longest statted read
     (cycles beyond it are zero) — the cut fastplong_tpu's
-    DeviceStats.trimmed_state makes.  The partials are summed before the
-    cut, as fastplong_tpu/pipeline/fast_runner.py sums its per-device
-    axis, so the result is one device's bit for bit.  Returns (array,
-    cycle length)."""
+    DeviceStats.trimmed_state makes.  Each partial is cut on its device
+    and only the cut is copied; a cut selects columns, so the sum of the
+    cuts is the cut of the sum that fastplong_tpu/pipeline/fast_runner.py
+    takes over its per-device axis, one device's bit for bit.  Returns
+    (array, cycle length)."""
     SL = side_stat_len(states[0])
     m = SL
     if max_seen is not None:
@@ -389,10 +416,13 @@ def stats_state_to_numpy(states, max_seen=None):
         while q < m:
             q *= 2
         m = min(q, SL)
-    flat = sum(st.cpu().numpy().astype(np.int64) for st in states)
     if m < SL:
-        flat = np.concatenate([flat[:, :FLAT_PER_L * m],
-                               flat[:, FLAT_PER_L * SL:]], axis=1)
+        # cut on the device: only the cycles that hold counts are copied
+        states = [torch.cat([st[:, :FLAT_PER_L * m], st[:, FLAT_PER_L * SL:]],
+                            dim=1) for st in states]
+    flat = states[0].to("cpu", copy=True).numpy()
+    for st in states[1:]:
+        flat += st.cpu().numpy()
     return flat, m
 
 

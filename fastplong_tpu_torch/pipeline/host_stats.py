@@ -1,12 +1,14 @@
-"""Host-side per-read statistics for monster reads.
+"""Host-side per-read statistics.
 
-Reads longer than the device stat cap (FASTPLONG_STAT_DEVICE_CAP, default
-64Kbp) would need [34*L] device accumulators per bucket and giant XLA
-shapes, so their spans/verdicts still run through the (stats-free) device
-step while the statistics are computed here with vectorized numpy —
-numerically identical to ops/stats_kernels.stat_batch, which itself mirrors
-the reference Stats::statRead (src/stats.cpp:265-375).  Monster reads are
-rare, and a single O(L) numpy pass per read is microseconds per Mbp.
+Two routes stat reads here rather than on the device, with the arithmetic
+of ops/stats_kernels.stat_batch, which mirrors the reference
+Stats::statRead (src/stats.cpp:265-375): --stats_backend host
+(BatchStatAccumulator, a native pass over whole packed batches, and
+HostStatAccumulator for its monster batches), and a monster batch (a
+bucket over stat_device_cap()) whose device accumulator would pass its
+memory ceiling (pipeline/runner.py; reads of tens of Mbp), statted read
+by read with HostStatAccumulator.  Under --stats_backend auto or device
+every other monster bucket is statted on the device.
 
 The per-cycle scatter uses plain fancy-indexed `+=`: within ONE read every
 (base-bucket, position) pair is unique, so there are no collisions.

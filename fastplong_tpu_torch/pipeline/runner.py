@@ -17,11 +17,16 @@ on, and each device writes its rows into its part of the batch's pinned
 host rows.  One device is the case of one slice.
 
 Statistics: buckets at or under stat_device_cap() accumulate into the
-device-resident [2, F] states, one per slice; longer (monster) buckets
-bypass the slices, take the first device's stats-free step and are statted
-on the host (pipeline/host_stats.py).  --stats_backend host sends every
-bucket through the stats-free step and the native host pass instead; auto
-means device.
+device-resident [2, F] states, one per slice, at global_stat_len().
+Longer (monster) buckets bypass the slices: they take the first device's
+step into a second [2, F] accumulator, made at the first monster bucket's
+length and grown on the device when a longer one comes, while its bytes
+stay within device.stats_state_budget; a bucket beyond that takes the
+stats-free step and is statted on the host (pipeline/host_stats.py).
+Both accumulators are drained once, at the end of the run.
+--stats_backend host sends every bucket through the stats-free step and
+the host (the native pass, or host_stats.py's for monster buckets)
+instead; auto means device.
 """
 
 import contextlib
@@ -35,12 +40,14 @@ from ..common import stat_device_cap
 from ..filter_result import FilterResult
 from ..io.fastq import FastqStreamReader, RecordBlock
 from ..io.writer import make_output_writer
+from ..ops.stats_kernels import flat_side_len, side_stat_len
 from ..spans import standalone
 from ..stats import Stats
 from ..util import loginfo
 from .batches import BatchBuilder, bucket_groups
-from .device import (global_stat_len, kernel_params, params_cap,
-                     stats_state_to_numpy, unflatten_side)
+from .device import (global_stat_len, grow_stats_state, kernel_params,
+                     params_cap, stats_state_budget, stats_state_to_numpy,
+                     unflatten_side, zero_stats_state)
 from .emit import emit_block_fast
 from .host_stats import (BatchStatAccumulator, HostStatAccumulator,
                          masked_span, median_qual)
@@ -124,7 +131,7 @@ class SingleEndRunner:
         self.mask_on = self.params["mask_enabled"]
         self.step, self.stages = build_fast_sharded_step(self.params,
                                                          self.placement)
-        self._nostats_steps = {}
+        self._steps = {}         # (placement, with_stats): built steps
         self.stat_cap = stat_device_cap()
         backend = getattr(opt, "stats_backend", "auto")
         self.host_stats_mode = backend == "host"
@@ -142,17 +149,46 @@ class SingleEndRunner:
             self._stats_pool = ThreadPoolExecutor(max_workers=1)
         self.states = None       # [2, F] accumulator per slice, made lazily
         self.max_seen = 0        # longest device-statted read
+        self.monster_state = None   # [2, F] of the monster buckets
+        self.monster_max_seen = 0
+        self.monster_step_calls = 0  # step calls into monster_state
+        self.host_stat_batches = 0   # monster batches statted on the host
         self.out_writer = None
         self.failed_writer = None
         self.split_set = None    # --split/--split_by_lines writers
         self.reader = None
         self.step_calls = 0      # step launches (one per non-empty slice)
 
-    def _nostats(self, placement):
-        if placement not in self._nostats_steps:
-            self._nostats_steps[placement] = build_fast_sharded_step(
-                self.params, placement, with_stats=False)[0]
-        return self._nostats_steps[placement]
+    def _step_for(self, placement, with_stats):
+        """The step over placement, with or without statistics, built
+        once."""
+        if with_stats and placement is self.placement:
+            return self.step
+        key = (placement, with_stats)
+        if key not in self._steps:
+            self._steps[key] = build_fast_sharded_step(
+                self.params, placement, with_stats)[0]
+        return self._steps[key]
+
+    @property
+    def monster_stat_len(self):
+        """The monster accumulator's cycle length (0 if none was made)."""
+        return (0 if self.monster_state is None
+                else side_stat_len(self.monster_state))
+
+    def _monster_state_at(self, L):
+        """The monster accumulator at a cycle length of at least L, made
+        or grown on the first device; None where that would take more
+        bytes than stats_state_budget allows at this moment."""
+        st = self.monster_state
+        if st is not None and side_stat_len(st) >= L:
+            return st
+        budget = stats_state_budget(self.device)
+        if budget is not None and 2 * flat_side_len(L) * 8 > budget:
+            return None
+        self.monster_state = (zero_stats_state(L, self.device)
+                              if st is None else grow_stats_state(st, L))
+        return self.monster_state
 
     # ------------------------------------------------------------------ run
 
@@ -215,13 +251,21 @@ class SingleEndRunner:
                     w.close()
 
         with span("stats_finish"):
+            # the longer (monster) cycle block first: Stats grows its
+            # per-cycle arrays once
+            states = ([([self.monster_state], self.monster_max_seen)]
+                      if self.monster_state is not None else [])
             if self.states is not None:
+                states.append((self.states, self.max_seen))
+            if states:
                 with span("stats_fetch"):
-                    flat, m = stats_state_to_numpy(self.states,
-                                                   self.max_seen)
-                self.pre_stats.add_device_partial(unflatten_side(flat[0], m))
-                self.post_stats.add_device_partial(
-                    unflatten_side(flat[1], m))
+                    drained = [stats_state_to_numpy(st, seen)
+                               for st, seen in states]
+                for flat, m in drained:
+                    self.pre_stats.add_device_partial(
+                        unflatten_side(flat[0], m))
+                    self.post_stats.add_device_partial(
+                        unflatten_side(flat[1], m))
             parts = [(self.pre_stats, self._host_pre.partial()),
                      (self.post_stats, self._host_post.partial())]
             if self.host_stats_mode:
@@ -320,14 +364,28 @@ class SingleEndRunner:
                     self._timed_pre_rows, batch)
             placement = self._monster_placement if monster else self.placement
             x, parts = placement.split_rows(batch.packed)
-            if monster or self.host_stats_mode:
-                rows, events = self._nostats(placement)(parts, batch.L)
+            calls = sum(part is not None for part, _, _ in parts)
+            monster_state = (self._monster_state_at(batch.L)
+                             if monster and not self.host_stats_mode
+                             else None)
+            if monster_state is not None:
+                rows, events = self._step_for(placement, True)(
+                    [monster_state], parts, batch.L)
+                self.monster_max_seen = max(self.monster_max_seen,
+                                            int(batch.lens.max()))
+                self.monster_step_calls += calls
+            elif monster or self.host_stats_mode:
+                batch.host_monster = monster
+                if monster:
+                    self.host_stat_batches += 1
+                rows, events = self._step_for(placement, False)(parts,
+                                                                batch.L)
             else:
                 if self.states is None:
                     self.states = placement.init_state(global_stat_len())
                 rows, events = self.step(self.states, parts, batch.L)
                 self.max_seen = max(self.max_seen, int(batch.lens.max()))
-            self.step_calls += sum(part is not None for part, _, _ in parts)
+            self.step_calls += calls
             if not (self.host_stats_mode and not monster):
                 batch.packed = None   # the host pass no longer needs the feed
             # x stays referenced until the batch is consumed: its pinned pages
@@ -353,7 +411,7 @@ class SingleEndRunner:
         if batch.pre_medians is not None:
             batch.pre_medians = batch.pre_medians.result()
         out = PackedResults(rows, self.cap, len(self.stages))
-        if batch.L > self.stat_cap:
+        if batch.host_monster:
             with self.spans("host_stats"):
                 self._host_stat_batch(out, batch)
         elif self.host_stats_mode:
@@ -396,9 +454,10 @@ class SingleEndRunner:
         batch.packed = None
 
     def _host_stat_batch(self, out, batch):
-        """Host statRead for one monster batch (its device step is
-        stats-free): fills the medians and the host accumulators, with the
-        arithmetic of ops/stats_kernels.stat_batch."""
+        """Host statRead for one monster batch that took the stats-free
+        step (--stats_backend host, or beyond the monster accumulator's
+        memory ceiling): fills the medians and the host accumulators, with
+        the arithmetic of ops/stats_kernels.stat_batch."""
         for seg in batch.segments:
             blk = seg.block
             for k, i in enumerate(seg.indices):

@@ -97,10 +97,15 @@ def process(opt, device=None, devices=None):
     dump = os.environ.get("FASTPLONG_TIMER_DUMP")
     if dump:
         # diagnostics: this job's spans by layer (phase_seconds,
-        # evaluator_seconds, stage_seconds), its step calls and launches
+        # evaluator_seconds, stage_seconds), its step calls (those into
+        # the monster accumulator apart, with its final cycle length, and
+        # the monster batches statted on the host) and launches
         with open(dump, "w") as f:
             json.dump({"device": str(runner.device), **spans.report(),
                        "step_calls": runner.step_calls,
+                       "monster_step_calls": runner.monster_step_calls,
+                       "monster_stat_len": runner.monster_stat_len,
+                       "host_stat_batches": runner.host_stat_batches,
                        # this job's launches alone
                        "launches": {k: v - launches0[k] for k, v
                                     in _launch_counts().items()}}, f)

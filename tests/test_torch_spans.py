@@ -82,7 +82,8 @@ def _job(d, fq, flags):
 def traced(tmp_path_factory):
     """Each of JOBS once under torch.profiler (CPU activity), with the
     statistics cap lowered to the first bucket (1,024) so that both the
-    device and the host statistics run: {name: (trace events, dump)}."""
+    per-slice and the monster accumulators run: {name: (trace events,
+    dump)}."""
     d = str(tmp_path_factory.mktemp("spans"))
     fq = _input(os.path.join(d, "in.fq"))
     out = {}
@@ -166,8 +167,10 @@ def test_trace_nests_the_spans(traced, name):
     want = ({"kmer_fill", "top_key"} if name == "detect"
             else {"step.regions", "step.middle_split", "step.polyx"})
     assert want <= names
-    # both statistics routes ran
-    assert {"host_stats", "step.stats_pre", "stats_fetch"} <= names
+    # both statistics accumulators ran: the per-slice one and the monster
+    # one (step calls with statistics for the buckets over the cap)
+    assert {"step.stats_pre", "stats_fetch"} <= names
+    assert dump["monster_step_calls"] > 0
 
 
 def test_step_stages_hold_their_ops(traced):
@@ -232,7 +235,9 @@ def test_dump_keeps_its_keys_and_nesting_sums(traced, name):
     at least the sum of the spans it holds (4-decimal rounding aside)."""
     _, dump = traced[name]
     assert set(dump) == {"device", "phase_seconds", "evaluator_seconds",
-                         "stage_seconds", "step_calls", "launches"}
+                         "stage_seconds", "step_calls", "monster_step_calls",
+                         "monster_stat_len", "host_stat_batches",
+                         "launches"}
     assert dump["step_calls"] > 0
     for layer, names in LAYER.items():
         assert set(dump[layer]) <= set(names)
