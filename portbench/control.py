@@ -4,11 +4,12 @@
 
 For each seed, in one process: the cell's input files at the cell's own
 size; one job of the program per file, through the same entry and flags as
-the window, judged by the check (the sound readings); then the control, the
-plain reference with one guarantee of the configuration broken put in the
-program's place and judged the same way (the control's readings).  The
-control leaves out the middle-adapter split, the step that a faster program
-would be tempted to skip; it breaks the guarantee of exact output.
+the window, judged by the check against the cell's reference (the sound
+readings); then the control, that plain reference with one guarantee of the
+configuration broken put in the program's place and judged the same way
+(the control's readings).  The control leaves out the middle-adapter
+split, the step that a faster program would be tempted to skip; it breaks
+the guarantee of exact output.
 
 Prints one JSON line a seed, then one with each number's lower reading
 (the largest over the sound runs) and upper reading (the smallest over the
@@ -40,21 +41,20 @@ def report_text(report):
 
 def readings(cell, seed, device, tmp, with_control=True):
     """(sound numbers, control numbers or None, notes) of one seed."""
-    from portbench import check, gen, harness, reference
+    from portbench import check, gen, harness
     files, _ = gen.write_files(cell.mix, seed, tmp)
     prog = harness.Program(device, tmp, cell.config["flags"])
     jobs, want, ctl = [], {}, []
     for i, (path, bases) in enumerate(files):
         job = harness.Job(i, os.path.basename(path), bases)
         jobs.append(prog.run(job, path))
-    params = cell.config["params"]
     for i, (path, bases) in enumerate(files):
         with open(path, "rb") as f:
             raw = f.read()
-        want[jobs[i].name] = reference.expected(raw, params, device)
+        want[jobs[i].name] = cell.expected(raw, device)
         if not with_control:
             continue
-        c = reference.expected(raw, params, device, control="no_middle")
+        c = cell.expected(raw, device, control="no_middle")
         stand_in = harness.Job(i, jobs[i].name, bases)
         stand_in.stream = c["stream"]
         stand_in.report = report_text(dict(c["report"], **{

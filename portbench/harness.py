@@ -3,7 +3,9 @@
 Everything that belongs to one configuration, traffic mix or per-layer
 metric is a file of its own, found by the name that BENCHMARK.json gives:
 configs/<name>.json (its `file` entry), traffic/<name>.json and
-metrics/<name>.py.
+metrics/<name>.py.  A configuration that names a `reference` is checked
+against references/<reference>.py; one that names none, against
+reference.py.
 """
 
 import contextlib
@@ -12,6 +14,8 @@ import importlib.util
 import io
 import json
 import os
+import re
+import resource
 import shutil
 import sys
 import tempfile
@@ -23,6 +27,7 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 FORBIDDEN = ("jax", "jaxlib", "flax", "fastplong_tpu")
 TRACE_MIN_S = 2.0     # the traced stretch: whole jobs, at least this long
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}\Z")
 
 
 # ------------------------------------------------------------ the cell
@@ -50,18 +55,50 @@ class Cell:
         self.root = root
         self.end_to_end = [m for m in bench["end_to_end"] if self._has(m)]
         self.per_layer = [m for m in bench["per_layer"] if self._has(m)]
+        self.reference = self._reference(self.config.get("reference"))
+        unknown = sorted(set(self.config["params"])
+                         - set(self.reference.PARAMS))
+        if unknown:
+            raise ValueError(
+                "%s: params %s are not modelled by its reference %s" % (
+                    conf["file"], ", ".join(unknown),
+                    self.config.get("reference", "reference.py")))
 
     def _has(self, metric):
         return "workloads" not in metric or self.name in metric["workloads"]
 
+    def _reference(self, name):
+        """The configuration's plain reference: references/<name>.py, or
+        reference.py where the configuration names none."""
+        if name is None:
+            return reference
+        if not isinstance(name, str) or not NAME.match(name):
+            raise ValueError("reference %r is not a name" % (name,))
+        path = os.path.join(self.root, "portbench", "references",
+                            name + ".py")
+        if not os.path.isfile(path):
+            raise FileNotFoundError("the configuration's reference %s is "
+                                    "missing" % path)
+        return load_module(path, "portbench_reference_" + name)
+
+    def expected(self, raw, device="cpu", control=None):
+        """The reference's expected output of one input file's bytes under
+        this configuration's parameters."""
+        return self.reference.expected(raw, self.config["params"], device,
+                                       control=control)
+
     def metric_reader(self, name):
         path = os.path.join(self.root, "portbench", "metrics", name + ".py")
-        spec = importlib.util.spec_from_file_location(
-            "portbench_metric_" + name.replace(".", "_").replace("-", "_"),
-            path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load_module(path, "portbench_metric_" + name).read
+
+
+def load_module(path, name):
+    """The module of a file under the benchmark, found by its path."""
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # ------------------------------------------------------------ one job
@@ -112,6 +149,7 @@ class Job:
     def __init__(self, index, name, bases):
         self.index, self.name, self.bases = index, name, bases
         self.wall = 0.0
+        self.cpu = 0.0        # the process's user and system seconds
         self.failed = False
         self.error = ""
         self.stream = b""
@@ -153,6 +191,7 @@ class Program:
                 + ["-j", self.json, "-h", self.html, "--stdout"])
         sink, err = Sink(like), io.StringIO()
         old_out = sys.stdout
+        r0 = resource.getrusage(resource.RUSAGE_SELF)
         t0 = time.perf_counter()
         try:
             sys.stdout = sink
@@ -168,6 +207,8 @@ class Program:
         finally:
             sys.stdout = old_out
         job.wall = time.perf_counter() - t0
+        r1 = resource.getrusage(resource.RUSAGE_SELF)
+        job.cpu = (r1.ru_utime + r1.ru_stime) - (r0.ru_utime + r0.ru_stime)
         job.stream = sink.value()
         job.evaluator = "Trying to detect adapter" in err.getvalue()
         if job.failed:
@@ -304,8 +345,7 @@ def _run(cell, seed, seconds, trace, device, t_start, tmp):
         if job.name not in want:
             with open(os.path.join(tmp, job.name), "rb") as f:
                 raw = f.read()
-            want[job.name] = reference.expected(raw, cell.config["params"],
-                                                device)
+            want[job.name] = cell.expected(raw, device)
         return want[job.name]
 
     numbers, notes = check.compare(jobs, expected_of)
@@ -318,9 +358,10 @@ def _run(cell, seed, seconds, trace, device, t_start, tmp):
     bases = sum(j.bases for j in jobs)
     metrics = {}
     if not trace:
-        values = {"mbases_per_s": bases / window_s / 1e6, "setup_s": setup_s}
+        values = {"mbases_per_s": bases / window_s / 1e6, "setup_s": setup_s,
+                  "memory_peak_mb": memory_peak / 1e6 if cuda else None}
         for m in cell.end_to_end:
-            if m["name"] in values:
+            if values.get(m["name"]) is not None:
                 metrics[m["name"]] = {"value": values[m["name"]],
                                       "unit": m["unit"]}
     else:
@@ -344,6 +385,7 @@ def _run(cell, seed, seconds, trace, device, t_start, tmp):
     log("window %.3f s, %d jobs, %d bases, setup %.3f s" % (
         window_s, len(jobs), bases, setup_s))
     log("job walls: %s" % " ".join("%.3f" % j.wall for j in jobs))
+    log("job cpu s: %s" % " ".join("%.3f" % j.cpu for j in jobs))
     result["checks"] = {k: {"value": v, "limit": check.LIMITS[k]}
                         for k, v in numbers.items()}
     return result

@@ -37,6 +37,16 @@ PASS, FAIL_N_BASE, FAIL_LENGTH, FAIL_TOO_LONG, FAIL_QUALITY = 0, 12, 16, 17, 20
 TAG_LEFT = b"split-by-adapter-left-"
 TAG_RIGHT = b"split-by-adapter-right-"
 
+# the configuration parameters that expected() reads; a configuration with
+# any other parameter needs a reference of its own (see harness.Cell)
+PARAMS = frozenset((
+    "start_adapter", "end_adapter", "adapter_trimming", "ed_max",
+    "trimming_extension", "trim_front", "trim_tail", "cut_front", "cut_tail",
+    "cut_window", "cut_quality", "polyx", "polyx_min_len",
+    "quality_filtering", "qualified_quality", "unqualified_percent_limit",
+    "n_percent_limit", "n_base_limit", "mean_qual", "length_filtering",
+    "length_required", "length_limit", "low_complexity_filter"))
+
 
 class NotModelled(Exception):
     """The input asks for a path this reference does not model."""

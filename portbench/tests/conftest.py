@@ -40,12 +40,14 @@ def cuda_card():
 
 def make_root(tmp, extra_cells=True):
     """A checkout-like root holding BENCHMARK.json and the benchmark's data
-    files, with a `<config>.tiny` cell of each configuration."""
+    files and references, with a `<config>.tiny` cell of each
+    configuration."""
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    for sub in ("configs", "traffic", "metrics"):
-        shutil.copytree(os.path.join(ROOT, "portbench", sub),
-                        os.path.join(tmp, "portbench", sub))
+    for sub in ("configs", "traffic", "metrics", "references"):
+        if os.path.isdir(os.path.join(ROOT, "portbench", sub)):
+            shutil.copytree(os.path.join(ROOT, "portbench", sub),
+                            os.path.join(tmp, "portbench", sub))
     with open(os.path.join(ROOT, "portbench", "traffic",
                            "chunks.json")) as f:
         mix = json.load(f)

@@ -102,6 +102,9 @@ def test_a_detection_fault_is_not_correct(tiny_root, monkeypatch):
     r = harness.run_cell(cell, 34, 0.1, False, "cpu", time.perf_counter())
     assert r["correct"] is False
     assert r["checks"]["adapters_differing"]["value"] >= 1
+    # the end-to-end metrics; off a card there is no device memory to read
+    assert set(r["metrics"]) == {m["name"] for m in cell.end_to_end} - {
+        "memory_peak_mb"}
 
 
 @pytest.mark.parametrize("kind", ["state_unchanged", "half_batch",

@@ -90,9 +90,17 @@ def _imports(code):
 
 
 def test_the_reference_loads_nothing_of_jax_or_the_program():
-    tops = _imports("import sys; sys.path.insert(0, %r)\n"
-                    "from portbench import reference, check, gen, work"
-                    % ROOT)
+    """Neither reference.py nor any configuration's own reference under
+    references/, each loaded as the harness loads it."""
+    tops = _imports("import glob, os, sys\n"
+                    "sys.path.insert(0, %r)\n"
+                    "from portbench import reference, check, gen, work\n"
+                    "from portbench import harness\n"
+                    "for path in sorted(glob.glob(%r)):\n"
+                    "    harness.load_module(\n"
+                    "        path, 'reference_' + os.path.basename(path))"
+                    % (ROOT, os.path.join(ROOT, "portbench", "references",
+                                          "*.py")))
     assert not tops & {"jax", "jaxlib", "flax", "fastplong_tpu",
                        "fastplong_tpu_torch"}
 

@@ -56,6 +56,10 @@ def test_timer_metrics(cell):
         0.2 * 5 / gb)
     assert read(cell, "file_s.p75", run) == pytest.approx(
         statistics.quantiles([j.wall for j in timed], n=4)[2])
+    assert read(cell, "jobs.mbases_per_s", run) == pytest.approx(
+        120 / (1.0 + 1.2 + 1.4 + 0.9))
+    assert read(cell, "jobs.mbases_per_s", harness.RunData(
+        [j for j in jobs if j.traced], None)) is None
     # nothing to read: no trace, or no auto-detection
     for name in ("step.device_ops_per_call", "kernels.roofline",
                  "device.idle_share"):
