@@ -158,6 +158,8 @@ class SingleEndRunner:
         self.split_set = None    # --split/--split_by_lines writers
         self.reader = None
         self.step_calls = 0      # step launches (one per non-empty slice)
+        self.break_out_reads = 0  # active out-reads that -b cut from a read
+        self.masked_bases = 0     # bases of active out-reads that -N wrote N
 
     def _step_for(self, placement, with_stats):
         """The step over placement, with or without statistics, built
@@ -496,6 +498,13 @@ class SingleEndRunner:
         codes = out.code[out.active]
         if len(codes):
             self.filter_result.add_filter_results(codes)
+        if self.params["break_enabled"]:
+            self.break_out_reads += int(
+                (out.active & (out.region_no > 0)).sum())
+        if self.mask_on:
+            masked = (np.minimum(out.out_hi, out.mask_hi)
+                      - np.maximum(out.out_lo, out.mask_lo))
+            self.masked_bases += int(np.maximum(masked, 0)[out.active].sum())
         live = ~out.null
         pm = live & (out.poly >= 0)
         if pm.any():

@@ -99,13 +99,16 @@ def process(opt, device=None, devices=None):
         # diagnostics: this job's spans by layer (phase_seconds,
         # evaluator_seconds, stage_seconds), its step calls (those into
         # the monster accumulator apart, with its final cycle length, and
-        # the monster batches statted on the host) and launches
+        # the monster batches statted on the host), the out-reads that -b
+        # cut and the bases that -N wrote N, and launches
         with open(dump, "w") as f:
             json.dump({"device": str(runner.device), **spans.report(),
                        "step_calls": runner.step_calls,
                        "monster_step_calls": runner.monster_step_calls,
                        "monster_stat_len": runner.monster_stat_len,
                        "host_stat_batches": runner.host_stat_batches,
+                       "break_out_reads": runner.break_out_reads,
+                       "masked_bases": runner.masked_bases,
                        # this job's launches alone
                        "launches": {k: v - launches0[k] for k, v
                                     in _launch_counts().items()}}, f)

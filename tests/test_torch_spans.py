@@ -237,7 +237,7 @@ def test_dump_keeps_its_keys_and_nesting_sums(traced, name):
     assert set(dump) == {"device", "phase_seconds", "evaluator_seconds",
                          "stage_seconds", "step_calls", "monster_step_calls",
                          "monster_stat_len", "host_stat_batches",
-                         "launches"}
+                         "break_out_reads", "masked_bases", "launches"}
     assert dump["step_calls"] > 0
     for layer, names in LAYER.items():
         assert set(dump[layer]) <= set(names)
